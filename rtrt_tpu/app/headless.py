@@ -1,7 +1,8 @@
 """Headless CLI: render / benchmark / record without a display.
 
-The reference's app shell is a Vulkan window (SURVEY.md §2.7); on a TPU VM
-the presentation layer is a file or an HTTP stream (app/viewer.py).  This
+The reference's app shell is a Vulkan window (SURVEY.md §2.7); on a
+headless accelerator host the presentation layer is a file or an HTTP
+stream (app/viewer.py).  This
 CLI covers the benchmark/record mode: N frames, FPS stats, PNG/PPM dumps —
 the analog of the reference's DUMP_FRAME_NUM debug path
 (reference: src/kernel.cuh:44-45, src/kernel.cu:378-391).

@@ -1,6 +1,6 @@
 """Per-frame two-level LBVH construction, atomic-free and fully vectorized.
 
-TPU-native counterpart of the reference's BLAS/TLAS rebuild chain
+Counterpart of the reference's BLAS/TLAS rebuild chain
 (reference: src/updateGeometry.cuh:65-364 geometry+morton,
 src/radixSort.cuh:21-246 per-batch sort, src/buildBVH.cuh:18-271 Karras
 build + atomicCAS bottom-up AABB fit, orchestrated by src/bvh.cu:7-97).
@@ -59,8 +59,7 @@ def lbvh_topology(codes):
     log2n = max(1, (n - 1).bit_length())
     i = jnp.arange(n - 1, dtype=jnp.int32)
 
-    # Gathers run near-serial on TPU (ROADMAP fact #1), so the Karras
-    # searches are reformulated around the sorted-code LCP identity
+    # The Karras searches are reformulated to keep gathers out of them, around the sorted-code LCP identity
     #     delta(i, j) = min(adj[min(i,j) .. max(i,j)-1]),
     # where adj[k] = delta(k, k+1) is computed once by a SHIFT.  A
     # doubling min-table over adj (built by shifts) turns the whole
@@ -181,10 +180,8 @@ def build_scene_bvh(v0, v1, v2, valid) -> SceneBvh:
     # --- per-batch sort (reorder = sorted slot -> original in-batch index) --
     sorted_codes, reorder = sort_key_index(codes)
 
-    # apply the permutation to all vertex columns with ONE one-hot MXU
-    # matmul — take_along_axis gathers run near-serial on TPU (~5 ms here
-    # at terrain scale; ROADMAP fact #1), the einsum is ~0.1 ms and exact.
-    # Only FINITE columns may ride the matmul (0 * inf = NaN), so the
+    # apply the permutation to all vertex columns with ONE exact one-hot
+    # matmul (ops/gather.py) instead of per-column gathers.  Only FINITE columns may ride the matmul (0 * inf = NaN), so the
     # sorted leaf AABBs (whose padding slots are ±inf empty boxes) are
     # recomputed from the sorted vertices + permuted valid mask instead.
     from ..ops.gather import onehot_permute

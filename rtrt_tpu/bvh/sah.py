@@ -4,14 +4,14 @@ The per-frame path keeps the two-level LBVH (build.py — the analog of the
 reference's unconditional every-frame rebuild, reference: src/bvh.cu:7-97).
 Static scenes, however, can afford a much better tree ONCE at init: a
 binned SAH build (Wald 2007) yields ~1.5-2x fewer node visits per ray than
-morton LBVH, which directly divides the packet kernel's per-tile step
-unions — the dominant frame cost (ROADMAP).
+morton LBVH, which directly divides traversal work — the dominant
+frame cost.
 
 The tree is FLAT (no TLAS/BLAS split): every ray otherwise pays the TLAS
 levels on every traversal, and the morton-batch decomposition's overlapping
 batch boxes are exactly what SAH removes.  Node records and packed child
 entries use the same encoding as types.py, with internal entries using the
-full 22-bit idx|batch field as a flat node id (the packet kernel and the
+full 22-bit idx|batch field as a flat node id (the GPU lane kernel and the
 wavefront traverser both decode non-BLAS rows as `entry & 0x3FFFFF`):
 
     internal -> node id in bits 0..21
@@ -127,9 +127,9 @@ def _sah_fallback(tris: np.ndarray):
 
 def _collapse_leaves(boxes, children, leaf_max=8):
     """Collapse maximal subtrees of <= leaf_max triangles into row-aligned
-    multi-triangle leaves (the packet kernel tests a whole leaf from ONE
-    row fetch — per-visit cost is nearly flat in triangle count, so any
-    subtree that fits a leaf should BE a leaf).
+    multi-triangle leaves (a leaf visit tests its triangles from one run
+    of consecutive rows, so any subtree that fits a leaf should BE a
+    leaf).
 
     boxes (m,12) f32 / children (m,2) i32: flat binary tree with 1-tri
     leaves whose entries encode the slot (= preorder range position).
@@ -300,7 +300,8 @@ def build_scene_tables_sah(num_batches, indices, tri_mat, valid, verts, nrm,
 
 
 # ---------------------------------------------------------------------------
-# 4-wide collapse (packet-kernel tables)
+# 4-wide collapse (library code: refit's topology, a future 4-wide
+# traversal)
 # ---------------------------------------------------------------------------
 
 
@@ -360,8 +361,8 @@ def _collapse4_np(boxes, children):
 
 def bvh4_nodes(bvh: SceneBvh) -> np.ndarray:
     """Collapse a FLAT binary SceneBvh (from build_scene_bvh_sah — entries
-    must carry no BLAS bits) into 4-wide (q,32) records for the packet
-    kernel's arity-4 traversal.  Native when available."""
+    must carry no BLAS bits) into 4-wide (q,32) records (the topology
+    bvh/refit.py refits).  Native when available."""
     import ctypes
 
     from ..content import native

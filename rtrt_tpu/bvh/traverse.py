@@ -1,18 +1,19 @@
 """Two-level BVH traversal as a vectorized wavefront loop.
 
-TPU-native counterpart of the reference's stack traversal
+The plain XLA reference for the reference's stack traversal
 (reference: src/traverse.h:107-253 TraverseBvh, src/traverse.cuh:64-226
-RaySceneIntersect).  Instead of one divergent SIMT thread per ray, ALL rays
-step in lockstep through a masked `lax.while_loop`:
+RaySceneIntersect), and the CPU route of the frame.  Instead of one
+divergent SIMT thread per ray, ALL rays step in lockstep through a masked
+`lax.while_loop`:
 
-  * every ray holds a packed int32 "current node" + a 16-deep stack pair
+  * every ray holds a packed int32 "current node" + a STACK_DEPTH stack pair
     (entry, t) (reference stack: src/traverse.h:9-86);
   * each iteration fetches one node (12-float child-AABB pair + 2 packed
     children — the AABBCompact amortization of src/geometry.cuh:603) as
     per-component column gathers, runs a pair slab test, and — when children
     are leaves — watertight triangle tests INLINE in the same iteration, so
     leaf entries never consume stack slots or loop trips;
-  * pops scan the whole 16-wide t-stack at once and jump straight to the
+  * pops scan the whole t-stack at once and jump straight to the
     topmost non-pruned entry: t-pruned entries are skipped in ZERO iterations
     (the reference pops/skips one per loop, src/traverse.h:88-105);
   * TLAS->BLAS transitions cost nothing: TLAS leaf children were pre-resolved
@@ -22,8 +23,8 @@ step in lockstep through a masked `lax.while_loop`:
 The loop runs until every lane is done or `max_steps` (reference cap 1024,
 src/traverse.h:132; one of our iterations does strictly more work than one
 reference iteration).  Worst-lane dominance is the known cost of lockstep
-traversal; ray sorting/compaction between bounces (integrator-level) and a
-VMEM-resident Pallas variant are the planned mitigations.
+traversal; on the GPU the per-lane kernel (bvh/lane_traverse.py) runs the
+same loop body with lockstep confined to one block of rays.
 """
 
 from __future__ import annotations
@@ -55,30 +56,31 @@ def _sel3(k, x, y, z):
     return jnp.where(k == 0, x, jnp.where(k == 1, y, z))
 
 
-# Rays per traversal chunk.  The while_loop's carried state (~190 B/ray with
-# the 16-deep stacks) must stay VMEM-resident: measured per-ray cost is
-# ~0.4 us at 32k rays but ~15 us at 130k rays (state spills to HBM and every
-# node fetch becomes a random HBM access).  Large wavefronts are therefore
-# processed as a sequential lax.map over VMEM-sized chunks — the XLA-level
-# analog of a Pallas grid over ray tiles.
-TRAVERSAL_CHUNK = 32768
+# Rays per lockstep while loop.  Larger ray sets are split into chunks
+# traced one after another (unrolled, so each chunk's loop ends with its own
+# worst lane).  Swept on an H100 at 1080p (PERF.md): 131072-ray chunks trace
+# 2.4x faster than 1M-ray chunks but compile ~40x longer (16 loops per
+# call), so the reference keeps 1M-ray chunks: two loops per 1080p segment.
+TRAVERSAL_CHUNK = 1 << 20
 
 
 def intersect_scene(bvh: SceneBvh, org, dir, t_max=None, *, any_hit=False,
-                    leaf_width=1, max_steps=MAX_TRAVERSAL_STEPS) -> Hit:
+                    leaf_width=1, max_steps=MAX_TRAVERSAL_STEPS,
+                    chunk=TRAVERSAL_CHUNK) -> Hit:
     """Trace rays against the scene.  org/dir: (N,3); t_max: (N,) or None.
 
     With any_hit=True the loop terminates a lane at its first accepted hit
     (shadow-ray occlusion; t/tri then report that hit, not the closest).
+    chunk: rays per lockstep loop (see TRAVERSAL_CHUNK).
     """
     n = org.shape[0]
     if t_max is None:
         t_max = jnp.full((n,), jnp.inf, jnp.float32)
-    if n <= TRAVERSAL_CHUNK:
+    if n <= chunk:
         return _intersect_chunk(bvh, org, dir, t_max, any_hit, max_steps,
                                 leaf_width)
 
-    c = TRAVERSAL_CHUNK
+    c = chunk
     pad = (-n) % c
     if pad:
         org = jnp.concatenate([org, jnp.zeros((pad, 3), org.dtype)])
@@ -86,8 +88,8 @@ def intersect_scene(bvh: SceneBvh, org, dir, t_max=None, *, any_hit=False,
                                                        dir.dtype), (pad, 1))])
         t_max = jnp.concatenate([t_max, jnp.zeros((pad,), t_max.dtype)])
     nc = org.shape[0] // c
-    # unrolled python loop (NOT lax.map/scan: scan-carried chunking measured
-    # 13x slower — the scan body loses VMEM residency of the loop state)
+    # unrolled python loop: each chunk's while loop runs only as long as
+    # its own worst lane
     parts = [_intersect_chunk(bvh, org[i * c:(i + 1) * c],
                               dir[i * c:(i + 1) * c],
                               t_max[i * c:(i + 1) * c], any_hit, max_steps,
@@ -98,14 +100,13 @@ def intersect_scene(bvh: SceneBvh, org, dir, t_max=None, *, any_hit=False,
 
 def _intersect_chunk(bvh: SceneBvh, org, dir, t_max, any_hit,
                      max_steps, leaf_width=1) -> Hit:
-    """One VMEM-resident traversal chunk.
+    """One lockstep traversal chunk.
 
-    PERF NOTE: the loop body is fully SCALARIZED — every quantity is an (N,)
-    array so all N rays map across the VPU's lanes.  (N,3)-trailing-dim math
-    (concats/permutes of 3-wide minors) measured ~40x slower inside the
-    serial while_loop, so the slab + watertight tests are written in
-    component form and node/triangle fetches are per-component column
-    gathers from the column-major tables (see SceneBvh layout note).
+    The loop body is written in component form: every quantity is an (N,)
+    array, the slab and watertight tests work on scalar components, and
+    node/triangle fetches are per-component column gathers from the
+    column-major tables (see SceneBvh layout note).  bvh/lane_traverse.py
+    repeats this body per lane, operation for operation.
     """
     n = org.shape[0]
     aux = make_ray_aux(dir)

@@ -1,6 +1,6 @@
 """BVH data layout and stack-entry encoding.
 
-TPU-native counterpart of the reference's 64-byte BVHNode + bit-packed
+Counterpart of the reference's 64-byte BVHNode + bit-packed
 traversal stack entries (reference: src/bvhNode.cuh:5-13, src/traverse.h:9-86).
 
 Layout decisions (all static-shape, SoA):
@@ -32,12 +32,9 @@ import jax.numpy as jnp
 
 BATCH_SIZE = 1024          # triangles per BLAS batch (reference: src/kernel.cuh:579)
 # Leaves hold GROUP morton-adjacent triangles (the reference uses 1
-# tri/leaf, src/buildBVH.cuh:18-271).  Wider leaves trade pure-vector
-# triangle tests for internal traversal steps.  MEASURED on terrain
-# 1080p (v5e): GROUP=4 -> 403 ms/frame vs GROUP=1 -> 346 ms — the 4x
-# leaf-visit record fetches cost more than the ~2 saved tree levels, so
-# the default stays 1; the machinery is kept for re-sweeping after
-# fetch-cost changes.
+# tri/leaf, src/buildBVH.cuh:18-271).  Wider leaves trade vector
+# triangle tests for internal traversal steps; the two-level LBVH keeps 1
+# (static scenes get multi-triangle leaves from the SAH build instead).
 GROUP = 1
 GROUPS_PER_BATCH = BATCH_SIZE // GROUP
 BLAS_NODES = GROUPS_PER_BATCH - 1

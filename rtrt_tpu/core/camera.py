@@ -1,6 +1,6 @@
 """Pinhole + thin-lens camera model and reprojection.
 
-TPU-native counterpart of the reference camera
+Counterpart of the reference camera
 (reference: src/kernel.cuh:78-155, src/init.cu:412-439).  The camera is a
 small pytree of scalars/vectors; the orthonormal basis is derived pure-math
 inside jit, so moving the camera never retraces the frame function.

@@ -1,6 +1,6 @@
 """Color-science transforms (XYZ / sRGB / ACES / YCoCg / luminance).
 
-TPU-native counterpart of the reference's color matrices
+Counterpart of the reference's color matrices
 (reference: src/color.h:6-48) and the denoiser's YCoCg transform
 (reference: src/temporalDenoising.cuh:10-30).  Matrices are the standard
 published CIE / ACES colorimetry constants.

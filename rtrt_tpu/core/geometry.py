@@ -1,9 +1,9 @@
 """Geometric primitives and ray-primitive intersectors (batched, branchless).
 
-TPU-native counterpart of the reference's primitive types and intersector
+Counterpart of the reference's primitive types and intersector
 library (reference: src/geometry.h:5-158, src/geometry.cuh:18-620).  Every
 intersector here is written mask-based over arbitrary leading batch dims so
-it vectorizes across the VPU lanes — there is no scalar early-out; misses are
+it vectorizes across lanes — there is no scalar early-out; misses are
 encoded as `hit=False` / `t=+inf`.
 
 Primitives are plain arrays (SoA), not structs:

@@ -1,6 +1,6 @@
 """Floating-point error-bound helpers for watertight intersection.
 
-TPU-native counterpart of the reference's numeric-precision utilities
+Counterpart of the reference's numeric-precision utilities
 (reference: src/precision.cuh:18-70).  All constants are plain IEEE-754
 float32 facts, used to pad AABBs and conservatively bound triangle-test
 edge functions so rays cannot leak through shared edges.

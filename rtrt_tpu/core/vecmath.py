@@ -1,9 +1,9 @@
 """Vector / matrix math on JAX arrays.
 
-TPU-native replacement for the reference's header-only CUDA math library
+Replacement for the reference's header-only CUDA math library
 (reference: src/linearMath.h:100-748).  Instead of scalar Float3/Mat3 structs,
 everything here operates on batched arrays whose *trailing* axis holds the
-vector components — the natural SoA layout for the VPU's (8,128) lanes.
+vector components — the natural SoA layout for vectorized lanes.
 
 Conventions:
   * vectors: (..., 3) float32 arrays (or (...,2)/(...,4) where noted)
@@ -13,6 +13,7 @@ Conventions:
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 # ---------------------------------------------------------------------------
@@ -107,7 +108,7 @@ def permute3(v, kx, ky, kz):
 
     kx/ky/kz are (...,) int32 in {0,1,2}.  Used by the watertight triangle
     test's max-dimension permutation (reference: src/geometry.cuh:406-423).
-    Implemented with selects (TPU-friendly; avoids per-lane gather).
+    Implemented with selects (avoids a per-lane gather).
     """
     def pick(k):
         return jnp.where(k[..., None] == 0, v[..., 0:1],
@@ -146,8 +147,10 @@ def spherical_to_dir(theta, phi):
 
 
 def matvec(m, v):
-    """(...,N,N) @ (...,N) -> (...,N)."""
-    return jnp.einsum("...ij,...j->...i", m, v)
+    """(...,N,N) @ (...,N) -> (...,N).  Full float32: a GPU would otherwise
+    run it in TF32 (~3 decimal digits) and perturb directions and colors."""
+    return jnp.einsum("...ij,...j->...i", m, v,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def mat3_from_axis_angle(axis, angle):

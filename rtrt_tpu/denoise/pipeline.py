@@ -1,6 +1,6 @@
 """Full SVGF-style denoising chain.
 
-TPU-native counterpart of the reference's host sequence
+Counterpart of the reference's host sequence
 (reference: src/denoising.cu:5-189, pipeline diagram at :7-46):
 
     TemporalFilter -> tile noise -> SpatialFilter7x7 -> copy history
@@ -54,13 +54,9 @@ def init_history(h: int, w: int, half: bool = True) -> DenoiseHistory:
 
 def denoise(color, albedo, normal, depth, mat_id, motion,
             history: DenoiseHistory, p: DenoiseParams, flags: FeatureFlags,
-            frame_parity: int = 0, reproject_mode: str = "gather"):
-    """Run the chain on demodulated radiance.
-
-    reproject_mode: "tile_shift" (Pallas windowed kernel — arbitrary-motion
-    history, the TPU default; frame.py selects it), "gather" (pure-XLA
-    twin — the default, runs on any backend), "stencil" (round-1 ±1 px
-    fallback).
+            frame_parity: int = 0):
+    """Run the chain on demodulated radiance; history is reprojected at
+    arbitrary motion (denoise/reproject.py).
     Returns (final_color_with_albedo, new_history).
     """
     c = color
@@ -76,12 +72,10 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
     new_count = history.count
 
     rep1 = rep2 = None
-    if flags.temporal_filter and reproject_mode != "stencil":
-        from .reproject import reproject_gather, reproject_tile_shift
-        fn = (reproject_tile_shift if reproject_mode == "tile_shift"
-              else reproject_gather)
-        rep = fn(history.color, history.color2, history.depth,
-                 history.mat_id, history.count, motion)
+    if flags.temporal_filter:
+        from .reproject import reproject_gather
+        rep = reproject_gather(history.color, history.color2, history.depth,
+                               history.mat_id, history.count, motion)
         rep1 = (rep.color, rep.depth, rep.mat_id, rep.count, rep.ok)
         rep2 = (rep.color2, rep.depth, rep.mat_id, rep.count, rep.ok)
 
@@ -100,10 +94,6 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
         noise8 = noise8 / n_tile
 
     if flags.spatial_filter:
-        # radius-3 stride-1 stays the XLA tap-accumulation form: measured
-        # in-frame, the windowed-DMA kernel LOSES 15 ms here (halo DMA of
-        # 8 planes/tile outweighs the small aligned shifts XLA emits);
-        # the Pallas form remains available for sweeps
         c = spatial_filter_7x7(c, normal, depth, mat_id, noise8, p,
                                frame_parity)
 
@@ -111,12 +101,9 @@ def denoise(color, albedo, normal, depth, mat_id, motion,
 
     if flags.spatial_filter:
         noise16 = tile_noise_downsample(tile_noise_level(c, depth, 8))
-        # the wide (dilated) passes use the windowed Pallas kernel on TPU
-        # (the XLA shift form dominates the denoise stage — see spatial.py)
-        wide_pallas = reproject_mode == "tile_shift"
         for stride in (3, 6, 12):
             c = spatial_filter_wide(c, normal, depth, mat_id, noise16, p,
-                                    stride, use_pallas=wide_pallas)
+                                    stride)
 
     # remodulate albedo (reference: ApplyAlbedo, denoising.cu:160-163)
     from ..utils.debug import nan_guard

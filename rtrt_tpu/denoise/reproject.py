@@ -1,55 +1,28 @@
-"""Arbitrary-motion history reprojection without per-pixel gathers.
+"""Arbitrary-motion history reprojection.
 
 The reference reprojects denoiser history with a per-pixel bicubic fetch at
-uv+motion (reference: src/temporalDenoising.cuh:800-812) — a gather.  On
-TPU per-lane gathers run ~116M elem/s (near-serial), so round 1 shipped a
-±1 px shift-stencil that REJECTED history beyond one pixel of motion: any
-real camera movement restarted accumulation every frame.
-
-This module is the TPU-native fix: a Pallas TILE-SHIFT kernel.
-
-  * XLA prepass: per (32,128) image tile, the dominant integer motion
-    (rounded tile mean) picks a history WINDOW origin; the window covers
-    the tile plus an R-pixel halo on every side.
-  * Pallas kernel, one grid step per tile: DMA the 9 history planes'
-    windows from HBM into VMEM at the tile's dynamic offset (contiguous
-    block copies — the packet-kernel trick applied to 2D), then resolve
-    each lane's RESIDUAL motion (true motion − window base, ∈ [−R, R])
-    with a static (2R+1)² tap chain: bilinear weights for color, nearest
-    for depth/material/sample-count.  Zero gathers; all dense VPU work.
-  * Lanes whose residual falls outside the window (motion discontinuities,
-    e.g. parallax at depth edges) report ok=False and the temporal filter
-    restarts them — exactly the disocclusion semantics SVGF wants.
-
-A pure-XLA gather twin (`reproject_gather`) provides the CPU oracle and the
-small-image fallback; tests pin tile-shift == gather on every ok lane.
+uv+motion (reference: src/temporalDenoising.cuh:800-812) — a gather per
+tap.  `reproject_gather` does the same: every history plane is resampled
+at the motion-displaced position, color with the history filter below,
+depth / material / sample count with the nearest texel.  Lanes whose
+position leaves the image report ok=False and the temporal filter
+restarts them (disocclusion semantics).
 """
 
 from __future__ import annotations
 
-import functools
 import os as _os
 from typing import NamedTuple
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
-
-TILE_H = 32
-TILE_W = 128
-R = 3                      # residual radius (window halo), pixels
-B = 24                     # max per-tile base shift, pixels (≈24 px/frame)
 
 # History resampling filter.  The reference's temporal filter fetches
 # history with bicubic Catmull-Rom by DEFAULT (reference:
 # src/temporalDenoising.cuh:800-812, SampleBicubicCatmullRom) — sharper
 # accumulation under sub-pixel jitter than bilinear, which low-passes the
-# history a little every frame.  Both the Pallas tile-shift kernel and the
-# XLA gather twin honor this switch; CR's overshoot is bounded downstream
-# by the temporal filter's YCoCg neighborhood clamp (same as the
-# reference).  RTRT_HISTORY_FILTER=bilinear restores the round-4 default
-# for A/B.
+# history a little every frame.  CR's overshoot is bounded downstream by
+# the temporal filter's YCoCg neighborhood clamp (same as the reference).
+# RTRT_HISTORY_FILTER=bilinear selects bilinear for A/B.
 HISTORY_FILTER = _os.environ.get("RTRT_HISTORY_FILTER", "catmull_rom")
 
 
@@ -70,208 +43,22 @@ def _w_filter(d):
             else _w_bilinear)(d)
 
 
-# residual range on which the tap footprint is fully inside the window:
-# bilinear needs taps at floor(c)..floor(c)+1 (c ∈ [0, 2R]); Catmull-Rom
-# needs floor(c)-1..floor(c)+2 (c ∈ [1, 2R-1]).  Out-of-range lanes are
-# rejected (ok=False -> temporal restart), same semantics as before.
-_OK_LO = 1.0 if HISTORY_FILTER == "catmull_rom" else 0.0
-_OK_HI = 2.0 * R - _OK_LO
-# Mosaic DMA slices must have BOTH shape and start aligned to the (8,128)
-# VMEM tiling.  The window origin is therefore rounded DOWN to the tiling
-# and the remainder (rem_y ∈ [0,8), rem_x ∈ [0,128)) is removed inside the
-# kernel with a dynamic roll (pltpu.roll) after the copy lands — the tap
-# chain then sees the same [0, 2R] residual layout as an unaligned window.
-_WH = 48                   # ≥ TILE_H + 2R + 7 rows, multiple of 8
-_WW = 384                  # ≥ TILE_W + 2R + 127 lanes, multiple of 128
-# history margins such that a window at any |base| ≤ B stays in-array:
-_M = B + R                           # top/left
-_MB = _WH - TILE_H + B - R           # bottom
-_MR = _WW - TILE_W + B - R           # right
-
-
 class Reprojection(NamedTuple):
     """History resampled at uv+motion for every pixel (garbage where ~ok)."""
 
-    color: jnp.ndarray    # (H,W,3) bilinear pass-1 history
-    color2: jnp.ndarray   # (H,W,3) bilinear pass-2 history
+    color: jnp.ndarray    # (H,W,3) pass-1 history
+    color2: jnp.ndarray   # (H,W,3) pass-2 history
     depth: jnp.ndarray    # (H,W)   nearest
     mat_id: jnp.ndarray   # (H,W)   nearest i32
     count: jnp.ndarray    # (H,W)   nearest accumulation count
-    ok: jnp.ndarray       # (H,W)   bool: lane resolved inside its window
-
-
-def _pad_to(img, hp, wp):
-    h, w = img.shape[0], img.shape[1]
-    if (h, w) == (hp, wp):
-        return img
-    pad = [(0, hp - h), (0, wp - w)] + [(0, 0)] * (img.ndim - 2)
-    return jnp.pad(img, pad, mode="edge")
-
-
-def _tile_mean(x, th, tw):
-    """(H,W) -> (H/th, W/tw) window mean via reduce_window (layout-safe —
-    never reshape (H,W) into blocked form, ROADMAP fact #6)."""
-    s = jax.lax.reduce_window(x, 0.0, jax.lax.add, (th, tw), (th, tw),
-                              "VALID")
-    return s / (th * tw)
-
-
-def _reproject_kernel(offy_ref, offx_ref, y0_ref, x0_ref,
-                      mpy_ref, mpx_ref,
-                      c1x_h, c1y_h, c1z_h, c2x_h, c2y_h, c2z_h,
-                      dep_h, cnt_h, mat_h,
-                      r1x_o, r1y_o, r1z_o, r2x_o, r2y_o, r2z_o,
-                      dep_o, cnt_o, mat_o,
-                      *scratch, interpret: bool):
-    (s1x, s1y, s1z, s2x, s2y, s2z, sdep, scnt, smat,
-     sem0, sem1, sem2, sem3, sem4, sem5, sem6, sem7, sem8) = scratch
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    # aligned window origin + in-window remainder of the ideal origin
-    y0 = y0_ref[i, j]
-    x0 = x0_ref[i, j]
-    y0a = (y0 // 8) * 8
-    x0a = (x0 // 128) * 128
-    rem_y = y0 - y0a
-    rem_x = x0 - x0a
-
-    planes = [(c1x_h, s1x, sem0), (c1y_h, s1y, sem1), (c1z_h, s1z, sem2),
-              (c2x_h, s2x, sem3), (c2y_h, s2y, sem4), (c2z_h, s2z, sem5),
-              (dep_h, sdep, sem6), (cnt_h, scnt, sem7), (mat_h, smat, sem8)]
-    copies = [pltpu.make_async_copy(
-        hbm.at[pl.ds(y0a, _WH), pl.ds(x0a, _WW)], dst, sem)
-        for hbm, dst, sem in planes]
-    for cp in copies:
-        cp.start()
-    for cp in copies:
-        cp.wait()
-
-    def unalign(ref):
-        """Rotate the landed window so logical row/col 0 == ideal origin
-        (dynamic roll; jnp.roll in interpret mode — same semantics)."""
-        v = ref[...]
-        if interpret:
-            return jnp.roll(jnp.roll(v, -rem_y, axis=0), -rem_x, axis=1)
-        # non-negative shift form of "-rem" (avoids relying on negative
-        # dynamic-rotate semantics): roll by size - rem (mod size)
-        sy_ = jnp.where(rem_y == 0, 0, _WH - rem_y)
-        sx_ = jnp.where(rem_x == 0, 0, _WW - rem_x)
-        return pltpu.roll(pltpu.roll(v, sy_, 0), sx_, 1)
-
-    (v1x, v1y, v1z, v2x, v2y, v2z, vdep, vcnt, vmat) = [
-        unalign(s) for s in (s1x, s1y, s1z, s2x, s2y, s2z, sdep, scnt, smat)]
-
-    # per-lane window coordinates: lane (r, c)'s history sample sits at
-    # window row r + cy, col c + cx with cy/cx in [0, 2R] when resolvable
-    cy = mpy_ref[...] + offy_ref[i, j].astype(jnp.float32)
-    cx = mpx_ref[...] + offx_ref[i, j].astype(jnp.float32)
-
-    ny = jnp.clip(jnp.round(cy), 0, 2 * R).astype(jnp.int32)
-    nx = jnp.clip(jnp.round(cx), 0, 2 * R).astype(jnp.int32)
-
-    acc = [jnp.zeros((TILE_H, TILE_W), jnp.float32) for _ in range(6)]
-    ndep = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-    ncnt = jnp.zeros((TILE_H, TILE_W), jnp.float32)
-    nmat = jnp.zeros((TILE_H, TILE_W), jnp.int32)
-    for sy in range(2 * R + 1):
-        wy = _w_filter(cy - sy)
-        sel_y = ny == sy
-        for sx in range(2 * R + 1):
-            w = wy * _w_filter(cx - sx)
-            sl = (slice(sy, sy + TILE_H), slice(sx, sx + TILE_W))
-            for k, s in enumerate((v1x, v1y, v1z, v2x, v2y, v2z)):
-                acc[k] = acc[k] + w * s[sl]
-            sel = sel_y & (nx == sx)
-            ndep = jnp.where(sel, vdep[sl], ndep)
-            ncnt = jnp.where(sel, vcnt[sl], ncnt)
-            nmat = jnp.where(sel, vmat[sl], nmat)
-
-    r1x_o[...], r1y_o[...], r1z_o[...] = acc[0], acc[1], acc[2]
-    r2x_o[...], r2y_o[...], r2z_o[...] = acc[3], acc[4], acc[5]
-    dep_o[...] = ndep
-    cnt_o[...] = ncnt
-    mat_o[...] = nmat
-
-
-def reproject_tile_shift(color, color2, depth, mat_id, count, motion,
-                         interpret: bool = False) -> Reprojection:
-    """Tile-shift reprojection of the full history set at uv+motion.
-
-    color/color2: (H,W,3); depth/count: (H,W); mat_id: (H,W) i32;
-    motion: (H,W,2) uv offsets (prev − cur).
-    """
-    h, w = depth.shape
-    nty = max(-(-h // TILE_H), 1)
-    ntx = max(-(-w // TILE_W), 1)
-    hp, wp = nty * TILE_H, ntx * TILE_W
-
-    mpy = _pad_to(motion[..., 1] * h, hp, wp)
-    mpx = _pad_to(motion[..., 0] * w, hp, wp)
-
-    # Dominant integer shift per tile -> window origin in MARGIN-PADDED
-    # history coordinates.  History planes carry an extra _M = B+R margin
-    # on every side so that with |base| ≤ B the window NEVER clamps — a
-    # clamped window would silently reject its whole tile (out-of-image
-    # lanes are rejected by the caller's in-bounds test instead).
-    ty = jnp.arange(nty, dtype=jnp.int32)[:, None] * TILE_H
-    tx = jnp.arange(ntx, dtype=jnp.int32)[None, :] * TILE_W
-    base_y = jnp.clip(
-        jnp.round(_tile_mean(mpy, TILE_H, TILE_W)).astype(jnp.int32), -B, B)
-    base_x = jnp.clip(
-        jnp.round(_tile_mean(mpx, TILE_H, TILE_W)).astype(jnp.int32), -B, B)
-    y0 = ty + base_y - R + _M
-    x0 = tx + base_x - R + _M
-    off_y = ty - (y0 - _M)  # cy = mpy + off_y ∈ [0, 2R] iff lane resolvable
-    off_x = tx - (x0 - _M)
-
-    def pad_m(p):
-        ph, pw = p.shape[0], p.shape[1]
-        return jnp.pad(p, ((_M, hp - ph + _MB), (_M, wp - pw + _MR)),
-                       mode="edge")
-
-    planes = [pad_m(p) for p in
-              (color[..., 0], color[..., 1], color[..., 2],
-               color2[..., 0], color2[..., 1], color2[..., 2],
-               depth, count, mat_id)]
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    hbm = pl.BlockSpec(memory_space=pl.ANY)
-    blk = pl.BlockSpec((TILE_H, TILE_W), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((hp, wp), jnp.float32)
-    i32 = jax.ShapeDtypeStruct((hp, wp), jnp.int32)
-
-    outs = pl.pallas_call(
-        functools.partial(_reproject_kernel, interpret=interpret),
-        grid=(nty, ntx),
-        in_specs=[smem] * 4 + [blk] * 2 + [hbm] * 9,
-        out_specs=[blk] * 9,
-        out_shape=[f32] * 8 + [i32],
-        scratch_shapes=[pltpu.VMEM((_WH, _WW), jnp.float32)] * 8
-        + [pltpu.VMEM((_WH, _WW), jnp.int32)]
-        + [pltpu.SemaphoreType.DMA] * 9,
-        interpret=interpret,
-    )(off_y, off_x, y0, x0, mpy, mpx, *planes)
-
-    cy = mpy + jnp.repeat(jnp.repeat(off_y, TILE_H, 0), TILE_W, 1) \
-        .astype(jnp.float32)
-    cx = mpx + jnp.repeat(jnp.repeat(off_x, TILE_H, 0), TILE_W, 1) \
-        .astype(jnp.float32)
-    ok = (cy >= _OK_LO) & (cy <= _OK_HI) & (cx >= _OK_LO) & (cx <= _OK_HI)
-
-    crop = lambda x: x[:h, :w]
-    (r1x, r1y, r1z, r2x, r2y, r2z, dep, cnt, mat) = [crop(o) for o in outs]
-    return Reprojection(
-        color=jnp.stack([r1x, r1y, r1z], axis=-1),
-        color2=jnp.stack([r2x, r2y, r2z], axis=-1),
-        depth=dep, mat_id=mat, count=cnt, ok=crop(ok))
+    ok: jnp.ndarray       # (H,W)   bool: footprint inside the image
 
 
 def reproject_gather(color, color2, depth, mat_id, count, motion
                      ) -> Reprojection:
-    """Pure-XLA gather twin: the CPU-path implementation and the oracle the
-    tile-shift kernel is tested against (identical tap math, per-pixel
-    gathers instead of windows — fine on CPU, hopeless on TPU)."""
+    """Resample every history plane at uv+motion with per-pixel gathers
+    (the reference's bicubic history fetch); `ok` is False where the
+    footprint leaves the image."""
     h, w = depth.shape
     yy, xx = jnp.meshgrid(jnp.arange(h, dtype=jnp.float32),
                           jnp.arange(w, dtype=jnp.float32), indexing="ij")
@@ -286,9 +73,7 @@ def reproject_gather(color, color2, depth, mat_id, count, motion
     x0i = x0f.astype(jnp.int32)
 
     # footprint taps: bilinear uses {0,1}; Catmull-Rom {-1,0,1,2} (the
-    # filter default — see HISTORY_FILTER above; weights at the extra taps
-    # are exactly 0 under bilinear, so one unified tap set would also work,
-    # but the narrow set keeps the CPU path's gather count down)
+    # filter default — see HISTORY_FILTER above)
     taps = (0, 1) if HISTORY_FILTER == "bilinear" else (-1, 0, 1, 2)
 
     def resample(img):

@@ -1,6 +1,6 @@
 """Edge-aware spatial filters: 7x7 gaussian + dilated (a-trous) 5x5 chain.
 
-TPU-native counterpart of the reference's spatial denoisers
+Counterpart of the reference's spatial denoisers
 (reference: SpatialFilter7x7 at src/temporalDenoising.cuh:317-492 and
 SpatialFilterGlobal5x5<stride> at :495+, launched with strides 3/6/12 from
 src/denoising.cu:132-157).
@@ -9,18 +9,15 @@ Joint-bilateral weights per tap (reference :739-767):
     w = gauss(offset) * max(0, dot(n, n_tap))^sigma_normal
         * exp(-|z - z_tap|^2 / sigma_depth) * [mat == mat_tap penalty]
 
-Structural re-design for TPU: the reference *skips* quiet tiles (branchy);
-we compute the filter everywhere and LERP by the noise gate — shape-static,
+Structural difference: the reference *skips* quiet tiles (branchy); we
+compute the filter everywhere and LERP by the noise gate — shape-static,
 branch-free, and the XLA fusion makes the always-on cost close to the
 gated one (SURVEY.md §7 stage-4 note).
 """
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from ..ops.stencil import gaussian_weights, neighborhood
 from ..utils.config import DenoiseParams
@@ -32,10 +29,9 @@ def _edge_aware_pass(color, normal, depth, mat_id, p: DenoiseParams,
     """One joint-bilateral gaussian pass; returns filtered color.
 
     Tap-accumulation form: each tap is a statically shifted image fused
-    into one multiply-add sweep.  (Materializing the full (K,H,W,C) tap
-    stack and reducing over K — the previous form — broke XLA's stencil
-    fusion and cost 88 ms PER PASS at 1080p; accumulation fuses to a
-    handful of passes over HBM.)"""
+    into one multiply-add sweep, so XLA fuses the pass into a handful of
+    sweeps over device memory instead of materializing a (K,H,W,C) tap
+    stack."""
     from ..ops.stencil import shifted
     g = gaussian_weights(radius)
     k_half = (2 * radius + 1) ** 2 // 2
@@ -94,185 +90,20 @@ def _gate_by_noise(filtered, original, noise, threshold, tile: int):
 
 
 def spatial_filter_7x7(color, normal, depth, mat_id, noise8, p: DenoiseParams,
-                       frame_parity: int = 0, use_pallas: bool = False,
-                       interpret: bool = False):
+                       frame_parity: int = 0):
     """The reference's SpatialFilter7x7: full 7x7 joint-bilateral, gated by
     the 8x8 tile noise level, alternating half-kernels per frame."""
-    if use_pallas:
-        filtered = _wide_pass_pallas(color, normal, depth, mat_id, p,
-                                     stride=1, radius=3, half_taps=True,
-                                     parity=frame_parity, interpret=interpret)
-    else:
-        filtered = _edge_aware_pass(color, normal, depth, mat_id, p,
-                                    radius=3, stride=1, half_taps=True,
-                                    parity=frame_parity)
+    filtered = _edge_aware_pass(color, normal, depth, mat_id, p,
+                                radius=3, stride=1, half_taps=True,
+                                parity=frame_parity)
     return _gate_by_noise(filtered, color, noise8, p.noise_threshold, 8)
 
 
 def spatial_filter_wide(color, normal, depth, mat_id, noise16,
-                        p: DenoiseParams, stride: int,
-                        use_pallas: bool = False, interpret: bool = False):
+                        p: DenoiseParams, stride: int):
     """The reference's SpatialFilterGlobal5x5<stride> (a-trous dilation):
     5x5 taps at the given stride (3/6/12 -> effective 15/30/60 px),
-    gated by the 16x16 noise level.
-
-    use_pallas: windowed-DMA Pallas kernel (TPU).  The XLA shift-stencil
-    form handles small strides well, but at strides 3/6/12 each of the 25
-    taps crosses (8,128) vreg-tile boundaries and the fused loop emits
-    multiple unaligned loads + lane rotations per tap (the XLA wide
-    passes dominate the ~85 ms round-1 denoise stage; the Pallas form
-    cuts the stage to ~44 ms at 1080p).  The kernel DMAs one haloed
-    window per (64,512) tile into VMEM and runs the tap chain as aligned
-    dense VPU work (the denoise analog of the packet-kernel trick)."""
-    if use_pallas:
-        filtered = _wide_pass_pallas(color, normal, depth, mat_id, p,
-                                     stride, interpret=interpret)
-    else:
-        filtered = _edge_aware_pass(color, normal, depth, mat_id, p,
-                                    radius=2, stride=stride)
+    gated by the 16x16 noise level."""
+    filtered = _edge_aware_pass(color, normal, depth, mat_id, p,
+                                radius=2, stride=stride)
     return _gate_by_noise(filtered, color, noise16, p.noise_threshold_16, 16)
-
-
-# ---------------------------------------------------------------------------
-# Pallas windowed wide pass
-# ---------------------------------------------------------------------------
-
-_WT_H = 64     # output tile rows
-_WT_W = 512    # output tile cols
-_HALO = 48     # fixed window halo (covers 2*stride up to stride 12, 8-mult)
-
-
-def _wide_kernel(sig_ref,
-                 cx_h, cy_h, cz_h, nx_h, ny_h, nz_h, d_h, m_h,
-                 ox_o, oy_o, oz_o,
-                 *scratch, stride: int, radius: int, half_taps: bool,
-                 wh: int, ww: int, interpret: bool):
-    (scx, scy, scz, snx, sny, snz, sd, sm) = scratch[:8]
-    sems = scratch[8]
-    i = pl.program_id(0)
-    j = pl.program_id(1)
-    y0 = i * _WT_H    # window origin in the padded planes (static grid math)
-    x0 = j * _WT_W
-    planes = [(cx_h, scx), (cy_h, scy), (cz_h, scz), (nx_h, snx),
-              (ny_h, sny), (nz_h, snz), (d_h, sd), (m_h, sm)]
-    copies = [pltpu.make_async_copy(
-        hbm.at[pl.ds(y0, wh), pl.ds(x0, ww)], dst, sems.at[k])
-        for k, (hbm, dst) in enumerate(planes)]
-    for cp in copies:
-        cp.start()
-    for cp in copies:
-        cp.wait()
-
-    sigma_n = sig_ref[0]
-    sigma_d = sig_ref[1]
-    m_miss = jnp.maximum(1.0 - sig_ref[2], 0.0)
-    parity = sig_ref[3]
-
-    def at(s, dy, dx):
-        return s[_HALO + dy:_HALO + dy + _WT_H,
-                 _HALO + dx:_HALO + dx + _WT_W]
-
-    cx0, cy0, cz0 = at(scx, 0, 0), at(scy, 0, 0), at(scz, 0, 0)
-    nx0, ny0, nz0 = at(snx, 0, 0), at(sny, 0, 0), at(snz, 0, 0)
-    d0 = at(sd, 0, 0)
-    m0 = at(sm, 0, 0)
-    fin0 = jnp.isfinite(d0)
-    safe_d = jnp.where(fin0, d0, 0.0)
-    inv_sig = 1.0 / (sigma_d * jnp.maximum(safe_d, 1.0) + 1e-6)
-
-    # static python tap weights (numpy twin of gaussian_weights(radius) —
-    # no device-array creation inside kernel tracing)
-    import numpy as _np
-    _sig = radius * 0.5 + 0.25
-    _ax = _np.arange(-radius, radius + 1)
-    _k = _np.exp(-(_ax ** 2) / (2.0 * _sig ** 2))
-    _k2 = _np.outer(_k, _k)
-    g = (_k2 / _k2.sum()).reshape(-1)
-    k_half = (2 * radius + 1) ** 2 // 2
-
-    wsum = jnp.zeros((_WT_H, _WT_W), jnp.float32)
-    ax = jnp.zeros((_WT_H, _WT_W), jnp.float32)
-    ay = jnp.zeros((_WT_H, _WT_W), jnp.float32)
-    az = jnp.zeros((_WT_H, _WT_W), jnp.float32)
-    k = -1
-    for dy in range(-radius, radius + 1):
-        for dx in range(-radius, radius + 1):
-            k += 1
-            sy, sx = dy * stride, dx * stride
-            d_t = at(sd, sy, sx)
-            n_dot = (at(snx, sy, sx) * nx0 + at(sny, sy, sx) * ny0
-                     + at(snz, sy, sx) * nz0)
-            n_w = jnp.maximum(n_dot, 0.0) ** sigma_n
-            fin_t = jnp.isfinite(d_t)
-            dz = (jnp.where(fin_t, d_t, 0.0) - safe_d) * inv_sig
-            d_w = jnp.exp(-dz * dz)
-            d_w = jnp.where(fin_t == fin0, d_w, 0.0)
-            m_w = jnp.where(at(sm, sy, sx) == m0, 1.0, m_miss)
-            w = float(g[k]) * n_w * d_w * m_w
-            if half_taps and k != k_half:
-                # frame-alternating half kernel (traced parity scalar)
-                w = w * jnp.where((k + parity) % 2 == 0, 1.0, 0.0)
-            wsum = wsum + w
-            ax = ax + at(scx, sy, sx) * w
-            ay = ay + at(scy, sy, sx) * w
-            az = az + at(scz, sy, sx) * w
-
-    inv = 1.0 / jnp.maximum(wsum, 1e-6)
-    keep = wsum > 1e-6
-    ox_o[...] = jnp.where(keep, ax * inv, cx0)
-    oy_o[...] = jnp.where(keep, ay * inv, cy0)
-    oz_o[...] = jnp.where(keep, az * inv, cz0)
-
-
-def _wide_pass_pallas(color, normal, depth, mat_id, p: DenoiseParams,
-                      stride: int, radius: int = 2, half_taps: bool = False,
-                      parity=0, interpret: bool = False):
-    """One 5x5 joint-bilateral pass at the given stride, as a windowed-DMA
-    Pallas kernel — identical math to _edge_aware_pass(radius=2) (the XLA
-    twin is the oracle in tests/test_denoise_post.py)."""
-    import functools
-
-    h, w = depth.shape
-    nty = max(-(-h // _WT_H), 1)
-    ntx = max(-(-w // _WT_W), 1)
-    hp, wp = nty * _WT_H, ntx * _WT_W
-    # padded planes: _HALO on top/left; bottom/right carry the tile
-    # rounding + _HALO (+ window slack so the last window stays in-array:
-    # window cols span [x0, x0 + ww) with ww = _WT_W + 2*_HALO)
-    wh = _WT_H + 2 * _HALO
-    ww = _WT_W + 2 * _HALO   # 512+96=608 not 128-mult -> bump to 640
-    ww = -(-ww // 128) * 128
-    pad_b = (hp - h) + (wh - _WT_H - _HALO)
-    pad_r = (wp - w) + (ww - _WT_W - _HALO)
-
-    def pad_m(x):
-        return jnp.pad(x, ((_HALO, pad_b), (_HALO, pad_r)), mode="edge")
-
-    planes = [pad_m(x) for x in
-              (color[..., 0], color[..., 1], color[..., 2],
-               normal[..., 0], normal[..., 1], normal[..., 2],
-               depth, mat_id.astype(jnp.int32))]
-    sig = jnp.stack([p.sigma_normal.astype(jnp.float32),
-                     p.sigma_depth.astype(jnp.float32),
-                     p.sigma_material.astype(jnp.float32),
-                     jnp.asarray(parity, jnp.float32)])
-
-    smem = pl.BlockSpec(memory_space=pltpu.SMEM)
-    hbm = pl.BlockSpec(memory_space=pl.ANY)
-    blk = pl.BlockSpec((_WT_H, _WT_W), lambda i, j: (i, j),
-                       memory_space=pltpu.VMEM)
-    f32 = jax.ShapeDtypeStruct((hp, wp), jnp.float32)
-    outs = pl.pallas_call(
-        functools.partial(_wide_kernel, stride=stride, radius=radius,
-                          half_taps=half_taps, wh=wh, ww=ww,
-                          interpret=interpret),
-        grid=(nty, ntx),
-        in_specs=[smem] + [hbm] * 8,
-        out_specs=[blk] * 3,
-        out_shape=[f32] * 3,
-        scratch_shapes=[pltpu.VMEM((wh, ww), jnp.float32)] * 7
-        + [pltpu.VMEM((wh, ww), jnp.int32)]
-        + [pltpu.SemaphoreType.DMA((8,))],
-        interpret=interpret,
-    )(sig, *planes)
-    return jnp.stack([o[:h, :w] for o in outs], axis=-1)

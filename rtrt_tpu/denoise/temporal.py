@@ -1,6 +1,6 @@
 """Temporal reprojection filter (SVGF-style history accumulation).
 
-TPU-native counterpart of the reference's TemporalFilter
+Counterpart of the reference's TemporalFilter
 (reference: src/temporalDenoising.cuh:610-893) and TemporalFilter2
 (:896-1110): motion-vector history fetch, YCoCg neighborhood clamp,
 material-mask validity, anti-flicker blend modulation, and the per-8x8-tile
@@ -45,9 +45,9 @@ def temporal_filter(color, normal, depth, mat_id, motion,
     plain filtered otherwise.
 
     reproj: optional (hist_rgb, hist_depth, hist_mat, hist_count, ok) of
-    PRE-REPROJECTED history (denoise/reproject.py tile-shift kernel or its
-    gather twin) — the arbitrary-motion default; the in-function paths below
-    (±1 px shift stencil / bicubic gather) remain as fallbacks.
+    PRE-REPROJECTED history (denoise/reproject.py) — the arbitrary-motion
+    default; the in-function paths below (±1 px shift stencil / bicubic
+    gather) remain as fallbacks.
     """
     h, w = color.shape[0], color.shape[1]
     uv = _uv_grid(h, w)
@@ -55,10 +55,9 @@ def temporal_filter(color, normal, depth, mat_id, motion,
 
     # --- history fetch ---
     # The reference bicubic-resamples history at uv+motion (:800-812), a
-    # per-pixel gather.  TPU gathers cost ~8.6ns/element (0.4s/frame at
-    # 1080p), so history arrives either pre-reprojected by the tile-shift
-    # Pallas kernel (`reproj`, arbitrary motion, zero gathers) or through
-    # a ±1 px SHIFT-STENCIL fallback: bilinear resampling == a 3x3 weighted
+    # per-pixel gather.  History arrives either pre-reprojected
+    # (`reproj`, arbitrary motion, denoise/reproject.py) or through a
+    # ±1 px SHIFT-STENCIL fallback: bilinear resampling == a 3x3 weighted
     # sum of statically shifted history images.  Motion beyond the window
     # rejects history (temporal restart; the 1/N count resets and the
     # spatial gate reopens).  `bicubic=True` = full gather path (offline).

@@ -1,14 +1,13 @@
-"""MXU one-hot gathers: exact permutation/gather as a matmul.
+"""One-hot gathers: exact permutation/gather as a matmul.
 
-XLA's general gather runs near-serial on TPU (~116 M elem/s measured,
-ROADMAP fact #1), which makes every `take_along_axis` in the per-frame
-BVH build a milliseconds-scale line item.  For BATCH-LOCAL index spaces
-(N <= a few thousand) the TPU-native form is a one-hot matmul on the MXU
-— the same trick the exposure histogram uses for atomicInc
-(reference: src/postprocessing.cuh histogram vs post/exposure.py).
+For BATCH-LOCAL index spaces (N <= a few thousand) the per-frame BVH build
+permutes its columns with a one-hot matmul instead of per-element
+gathers — the same trick the exposure histogram uses for atomicInc
+(reference: src/postprocessing.cuh histogram vs post/exposure.py).  A
+plain gather may serve as well on a GPU (ROADMAP).
 
 Exactness: each one-hot row has a single 1.0, so every output element is
-1.0 * value + 0 * rest.  With `precision=HIGHEST` (bf16x3 passes on TPU)
+1.0 * value + 0 * rest.  With `precision=HIGHEST` (full float32, no TF32)
 multiplying by exactly-representable 0/1 reconstructs the f32 value
 bit-exactly; int32 payloads ride as f32 exactly while |x| < 2^24.
 """

@@ -1,9 +1,9 @@
 """Morton (Z-order) codes for spatial sorting.
 
-TPU-native counterpart of the reference's morton assignment
+Counterpart of the reference's morton assignment
 (reference: src/updateGeometry.cuh:13-27 for the 30-bit runtime code,
 tool/meshProcessor.cpp:36-64 for the 60-bit offline baker code).
-Pure bit math on int arrays — fully vectorized on the VPU.
+Pure bit math on int arrays — fully vectorized.
 """
 
 from __future__ import annotations

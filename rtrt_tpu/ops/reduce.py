@@ -2,7 +2,7 @@
 
 The reference fits internal-node AABBs bottom-up with an `atomicCAS`
 "second thread proceeds" rendezvous (reference: src/buildBVH.cuh:186-267).
-TPUs have no atomics and XLA wants data-parallel form, so we exploit the
+XLA wants data-parallel form without atomics, so we exploit the
 LBVH invariant instead: *every internal node covers a contiguous range of
 sorted leaves* (Karras 2012).  A doubling sparse table of mins/maxs turns
 each node's AABB into two O(1) range lookups — O(N log N) total work, fully

@@ -4,7 +4,7 @@ Counterpart of the reference's DownScale4 pyramid (reference:
 src/postprocessing.cuh:142, launches src/postprocessing.cu:21-35), the
 BicubicScale render->screen upscale (:785+), and mip generation
 (src/mipgen.cu:121-182).  Pure reshape-reduce / gather math that XLA maps
-straight onto the VPU.
+straight onto vector units.
 """
 
 from __future__ import annotations
@@ -39,9 +39,9 @@ def downsample4(img):
 
 def upsample_linear(img, out_h: int, out_w: int):
     """Bilinear upsample to (out_h, out_w) as two dense weight-matrix
-    contractions (jax.image.resize 'linear') — MXU work, zero gathers.
-    The repeat-then-smooth alternative costs a full-res 5x5 stencil per
-    buffer (measured 89.6 ms/pass at 1080p, bloom's old upsample path)."""
+    contractions (jax.image.resize 'linear', full float32 precision) —
+    matmul work, zero gathers, instead of a full-res 5x5 stencil per
+    buffer."""
     return jax.image.resize(img, (out_h, out_w) + img.shape[2:],
                             method="linear")
 

@@ -1,9 +1,9 @@
 """Prefix sums (scans) and CDF construction.
 
-TPU-native counterpart of the reference's two-level Blelloch scan
+Counterpart of the reference's two-level Blelloch scan
 (reference: src/scan.cuh:32-297, used to turn sky/sun luminance PDFs into
 CDFs at src/kernel.cu:298,301).  XLA's `cumsum` compiles to an efficient
-parallel scan on TPU, so the hand-written shared-memory version collapses
+parallel scan, so the hand-written shared-memory version collapses
 to a one-liner; helpers below add the normalization/flattening used by the
 light-sampling code.
 """

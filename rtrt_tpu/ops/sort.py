@@ -1,8 +1,8 @@
 """Batched key/value sorting.
 
-TPU-native counterpart of the reference's block-level LSD radix sort
+Counterpart of the reference's block-level LSD radix sort
 (reference: src/radixSort.cuh:21-246): the reference sorts each 1024-key
-batch inside one thread block with warp ballots; on TPU the idiomatic move
+batch inside one thread block with warp ballots; here the idiomatic move
 is `jax.lax.sort` over the trailing axis — XLA lowers it to an efficient
 vectorized bitonic/merge network, no atomics, and it vmaps over the batch
 axis for free.  The padding convention matches the reference: invalid slots

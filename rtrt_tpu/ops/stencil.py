@@ -1,12 +1,11 @@
 """2D stencil machinery: shifted-stack neighborhoods and bilinear resampling.
 
-TPU-native replacement for the reference's shared-memory stencil tiling
+Replacement for the reference's shared-memory stencil tiling
 (reference: src/temporalDenoising.cuh:335-395 loads a 22x22 halo tile into
-LDS per 8x8 block).  On TPU we instead express an R-radius stencil as a
-stack of statically-shifted full images — XLA fuses the shifts with the
-per-tap weight math into one pass over HBM, and the (8,128) VPU tiling falls
-out automatically.  A Pallas fused-stencil variant is the planned follow-up
-for the widest kernels.
+LDS per 8x8 block).  Here an R-radius stencil is a stack of
+statically-shifted full images — XLA fuses the shifts with the per-tap
+weight math into one pass over device memory.  A fused GPU stencil kernel
+for the widest filters is a later option (ROADMAP).
 
 All images are (H, W, C) or (H, W).
 """

@@ -1,10 +1,10 @@
 """Multi-chip SPMD sharding of the REAL frame program.
 
 The reference is strictly single-GPU (its only cross-device transport is
-CUDA<->Vulkan interop, SURVEY.md §2.8); the TPU-native scaling story is
-SPMD tile parallelism over a `jax.sharding.Mesh`.  Round 1 demonstrated
-this on a reduced pipeline (`parallel/tile.py`, kept as the
-explicit-collectives teaching variant); THIS module shards the actual
+CUDA<->Vulkan interop, SURVEY.md §2.8); here the scaling story is SPMD
+tile parallelism over a `jax.sharding.Mesh`.  `parallel/tile.py` shows it
+on a reduced pipeline with hand-written collectives; THIS module shards the
+actual
 product frame — `engine.frame.render_frame`, with the full temporal
 reprojection, the complete SVGF chain, bloom/flare/exposure post — with
 no duplicated pipeline code.
@@ -95,24 +95,19 @@ def make_spmd_frame_fn(mesh: Mesh, static: FrameStatic):
     """jit-compile the real frame program for the mesh.
 
     Requires render_h (and screen_h) divisible by the mesh size so row
-    shards are equal.  Two trace paths:
+    shards are equal.  The trace follows static.trace:
 
-    * use_megakernel=True — the Pallas megakernel launches per device
-      under `shard_map` (render/megakernel.py::_megakernel_trace_sharded):
-      image rows shard, scene tables replicate, each chip traces its own
-      row block.  Needs render rows divisible by n x TILE_SHAPE[0] (the
-      kernel's pixel-block height) per shard — the real-pod configuration.
-    * otherwise — the XLA wavefront path, partitioned automatically by
-      GSPMD from the row-sharding constraints (any row count divisible
-      by n; the dryrun's tiny-shape configuration).
+    * "kernel" — the GPU traversal kernel runs per device under
+      `shard_map` (bvh/lane_traverse.intersect): rays shard by image row,
+      scene tables replicate, each card traces its own row block.
+    * "xla" — the wavefront reference, partitioned automatically by GSPMD
+      from the row-sharding constraints.
     """
     n = mesh.devices.size
     assert static.render_h % n == 0 and static.screen_h % n == 0, \
         f"render_h={static.render_h} must divide over {n} row shards"
-    assert not (static.use_packets and not static.use_megakernel), \
-        "SPMD packet path goes through the megakernel (use_megakernel=True)"
     fn = partial(render_frame, static, row_sharding=_row_sharder(mesh),
-                 trace_mesh=mesh if static.use_megakernel else None)
+                 trace_mesh=mesh if static.trace == "kernel" else None)
     return jax.jit(fn)
 
 
@@ -129,8 +124,8 @@ def sharded_refit(mesh: Mesh, plan, tris_t, n_leaves: int,
     row-aligned `leaf_width` groups, so sharding the LEAF axis keeps
     every reduction shard-local; constraining the (n_leaves, 3) bounds
     replicated afterwards makes XLA insert one all-gather of
-    2 * n_leaves * 12 bytes — for the 1M-tri envelope, ~3 MB over ICI
-    instead of a redundant 64 MB/chip of leaf reduction traffic.
+    2 * n_leaves * 12 bytes — for the 1M-tri envelope, ~3 MB over the interconnect
+    instead of a redundant 64 MB/device of leaf reduction traffic.
 
     Returns the refitted raw (q, 32) node table (replicated), as
     `refit_nodes4` does.

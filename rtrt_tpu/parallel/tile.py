@@ -1,10 +1,10 @@
 """Multi-chip tile-parallel rendering over a jax.sharding.Mesh.
 
 The reference is strictly single-GPU; its only cross-domain transport is
-CUDA<->Vulkan interop (SURVEY.md §2.8/§5.8).  The TPU-native scaling story
-replaces that with SPMD tile parallelism: the image's ROW dimension shards
+CUDA<->Vulkan interop (SURVEY.md §2.8/§5.8).  Here the scaling story is
+SPMD tile parallelism: the image's ROW dimension shards
 across chips (`shard_map` over a 1-D mesh), the scene/BVH replicate, and the
-only cross-chip dependencies ride ICI collectives:
+only cross-chip dependencies ride collectives:
 
   * auto-exposure needs the GLOBAL luminance histogram -> `psum`;
   * denoise spatial stencils need row halos at shard boundaries -> halo
@@ -23,12 +23,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map  # jax >= 0.8 renamed check_rep -> check_vma
-    SM_NOCHECK = {"check_vma": False}
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
-    SM_NOCHECK = {"check_rep": False}
+from jax import shard_map
 
 from ..core.camera import Camera, camera_basis
 from ..core.vecmath import normalize
@@ -80,7 +75,7 @@ def _global_histogram(lum_shard, axis_name):
 
 
 def make_tile_frame(mesh: Mesh, scene_data_builder, width: int, height: int,
-                    denoise_params: DenoiseParams, use_packets: bool = False):
+                    denoise_params: DenoiseParams, trace: str = "xla"):
     """Build the SPMD frame step.
 
     scene_data_builder: callable (vertices) -> SceneData, traced inside jit
@@ -118,7 +113,7 @@ def make_tile_frame(mesh: Mesh, scene_data_builder, width: int, height: int,
 
         prev_basis = camera_basis(prev_camera)
         gbuf = path_trace(scene, rays, pix_ids, frame_idx, prev_basis,
-                          aspect, use_packets=use_packets)
+                          aspect, trace=trace)
 
         color = (gbuf.color * gbuf.albedo).reshape(hs, width, 3)
         normal = gbuf.normal.reshape(hs, width, 3)
@@ -130,7 +125,7 @@ def make_tile_frame(mesh: Mesh, scene_data_builder, width: int, height: int,
         color = color * blend + hist_color * (1.0 - blend)
         new_hist = color
 
-        # spatial denoise with ICI halo exchange for the stencil borders
+        # spatial denoise with a halo exchange for the stencil borders
         halo = 4
         c_h = _halo_exchange(color, halo, AXIS)
         n_h = _halo_exchange(normal, halo, AXIS)
@@ -166,7 +161,7 @@ def make_tile_frame(mesh: Mesh, scene_data_builder, width: int, height: int,
         shard_body, mesh=mesh,
         in_specs=(rep, rep, rep, shd, rep),
         out_specs=(shd, shd),
-        **SM_NOCHECK)
+        check_vma=False)
 
     def frame(vertices, camera, prev_camera, hist_color, frame_idx):
         scene = scene_data_builder(vertices)

@@ -4,14 +4,12 @@ Counterpart of the reference's bloom (reference: BloomGuassian at
 src/postprocessing.cuh:348-390 on the 1/4 and 1/16 buffers, composite
 `Bloom` :392-410 adding 0.05 * (bicubic(1/4) + bicubic(1/16))).
 
-TPU note: the reference's bicubic upscale is 16 gather taps per level;
+Design note: the reference's bicubic upscale is 16 gather taps per level;
 bloom is low-frequency by construction, so ALL smoothing happens at the
 low resolutions and the upsample back to full res is a dense-matmul
-bilinear resize (ops/resize.py::upsample_linear — MXU work, zero
-gathers).  The previous repeat-upsample + full-res 5x5 smooth cost
-3 x 89.6 ms/frame at 1080p (the taps materialize 25 full-res planes);
-the resize formulation is <1 ms and visually identical for a
-low-frequency signal.
+bilinear resize (ops/resize.py::upsample_linear — zero gathers), visually
+identical for a low-frequency signal and far cheaper than a full-res 5x5
+smooth, whose taps materialize 25 full-res planes.
 """
 
 from __future__ import annotations

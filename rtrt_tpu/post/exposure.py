@@ -1,11 +1,11 @@
 """Auto-exposure: log-luminance histogram + eye adaptation.
 
-TPU-native counterpart of the reference's exposure pipeline
+Counterpart of the reference's exposure pipeline
 (reference: Histogram2 via atomicInc at src/postprocessing.cuh:24-39 and the
 single-thread AutoExposure kernel :43-136).
 
 Re-architecture: the histogram is a ONE-HOT MATMUL — bucketize the 1/64-res
-luminance image, one-hot to (P, 64), sum-reduce on the MXU.  No atomics.
+luminance image, one-hot to (P, 64), sum-reduce.  No atomics.
 The "single-thread" adaptation state machine becomes a tiny pure-scalar
 update returning new state (EV, adapted lum, bright lum) as a (4,) array,
 exactly the reference's 4-float exposure buffer.
@@ -29,7 +29,7 @@ def log_luminance_histogram(img_small):
                   / (LOG_LUM_MAX - LOG_LUM_MIN), 0.0, 1.0)
     binf = ll * (NUM_BINS - 1)
     b0 = jnp.floor(binf).astype(jnp.int32)
-    # one-hot matmul histogram (MXU-friendly; replaces atomicInc)
+    # one-hot histogram (replaces atomicInc)
     onehot = (b0[:, None] == jnp.arange(NUM_BINS)[None, :]).astype(jnp.float32)
     hist = jnp.sum(onehot, axis=0)
     return hist / jnp.maximum(jnp.sum(hist), 1.0)

@@ -4,7 +4,7 @@ Counterpart of the reference's LensFlare (reference:
 src/postprocessing.cuh:415-488).  The reference uses CUDA *dynamic
 parallelism* — a 1-thread predicate kernel reads the depth at the sun pixel
 and device-launches the flare kernel when the sky is visible (:482-488).
-On TPU that becomes a traced visibility scalar multiplying the flare layer
+Here that becomes a traced visibility scalar multiplying the flare layer
 (branch-free; XLA's fusion makes the always-computed flare essentially free
 at 1/1 res of a few analytic shapes).
 

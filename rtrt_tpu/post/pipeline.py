@@ -23,7 +23,7 @@ from .tonemap import tonemap
 
 def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
                 p: PostParams, flags: FeatureFlags,
-                out_h: int, out_w: int, frame_idx, use_pallas=False):
+                out_h: int, out_w: int, frame_idx):
     """color: (H,W,3) linear denoised radiance at render res.
 
     Returns (u8 image (out_h,out_w,3), new_exposure_state).
@@ -53,19 +53,6 @@ def postprocess(color, exposure_state, dt, sun_uv, sun_visible,
     if flags.lens_flare:
         color = color + lens_flare(h, w, sun_uv, sun_visible,
                                    p.flare_strength) / jnp.maximum(ev, 1e-6)
-
-    # --- fused Pallas tail (TPU): tonemap+sharpen+dither+quantize in one
-    # windowed kernel (post/tail.py) — the XLA ops below are its oracle ---
-    if use_pallas and (out_h, out_w) == (h, w):
-        from ..render.sampling import blue_noise_mask
-        from .tail import post_tail_pallas
-        fshift = _to_unit_float(
-            hash_pcg(jnp.asarray(frame_idx).astype(jnp.uint32)))
-        u8 = post_tail_pallas(
-            color, ev, p.tone_map, p.gamma, p.sharpen_amount, fshift,
-            blue_noise_mask()[:, :, 0],
-            do_sharpen=flags.sharpen, do_dither=flags.dither)
-        return u8, exposure_state
 
     # --- exposure + tonemap + gamma ---
     exposed = color * ev

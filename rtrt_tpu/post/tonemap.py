@@ -11,9 +11,12 @@ never recompiles the frame.
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from ..core.color import luminance
+
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 TONE_REINHARD = 0
 TONE_ACES_FITTED = 1
@@ -44,11 +47,13 @@ _ACES_OUT = jnp.array([
 
 
 def aces_fitted(c):
-    v = jnp.einsum("ij,...j->...i", _ACES_IN, c)
+    # full float32 (no TF32 on a GPU): the products feed the 8-bit output
+    v = jnp.einsum("ij,...j->...i", _ACES_IN, c, precision=_HIGHEST)
     a = v * (v + 0.0245786) - 0.000090537
     b = v * (0.983729 * v + 0.4329510) + 0.238081
     v = a / b
-    return jnp.clip(jnp.einsum("ij,...j->...i", _ACES_OUT, v), 0.0, 1.0)
+    return jnp.clip(jnp.einsum("ij,...j->...i", _ACES_OUT, v,
+                               precision=_HIGHEST), 0.0, 1.0)
 
 
 def aces_approx(c):

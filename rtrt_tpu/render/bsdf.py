@@ -1,6 +1,6 @@
 """BSDF models: Lambertian, perfect mirror, Fresnel glass, GGX microfacet.
 
-TPU-native counterpart of the reference's BSDF library
+Counterpart of the reference's BSDF library
 (reference: src/bsdf.cuh:69-331, mirror at src/surfaceInteraction.cuh:18-23).
 All models are evaluated *branchlessly over material type* — every lane
 computes every lobe and selects by material id, which is the vectorization-
@@ -53,7 +53,7 @@ def material_lookup(m: Materials, mat):
     """Branchless material-table lookup via a static where-chain.
 
     The table is tiny (a handful of entries), so selecting with M compares
-    per field beats per-lane gathers (expensive on TPU) by a wide margin.
+    per field needs no per-lane gather.
     Returns (mtype, albedo, roughness, ior, f0, emission, textured).
     """
     n = int(m.mtype.shape[0])

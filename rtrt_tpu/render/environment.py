@@ -5,7 +5,7 @@ geometry — carry the ocean surface and the night stars: GetEnvIncidentLight
 (reference: src/sky2.cuh:75) raymarches the atmosphere, adds
 StableStarField (src/star.cuh:33) above the horizon, and, behind
 `USE_OCEAN` (sky2.cuh:11), resolves downward rays against OceanShader
-(src/water.cuh:127).  This module is the active TPU equivalent: escaped
+(src/water.cuh:127).  This module is the active equivalent: escaped
 rays resolve against sky + stars + raymarched ocean in one vectorized,
 gather-free eval (flags are static — unused features compile to nothing).
 

@@ -1,6 +1,6 @@
 """Wavefront path-tracing integrator (1 spp, fixed bounce program, MIS).
 
-TPU-native counterpart of the reference's PathTrace megakernel
+Counterpart of the reference's PathTrace megakernel
 (reference: src/pathtrace.cuh:11-128) and its bounce logic
 (reference: src/surfaceInteraction.cuh:11-310, src/traverse.cuh:9-56):
 
@@ -20,10 +20,9 @@ TPU-native counterpart of the reference's PathTrace megakernel
     (pathtrace.cuh:121-127);
   * radiance clamped to [0, CLAMP] against fireflies (pathtrace.cuh:108-119).
 
-Gather-avoidance design (TPU gathers are ~9 cycles/element):
-  * traversal AND surface attributes (normals, material id) come from the
-    packet kernel (bvh/packet.py) — zero integrator-side per-triangle
-    gathers;
+Each segment is one scene intersect (the GPU traversal kernel or the XLA
+wavefront reference, chosen by `trace`) followed by shading as XLA fusions:
+  * surface attributes (normals, material id) are gathered per hit lane;
   * material parameters resolve through a static where-chain
     (bsdf.material_lookup), textures are analytic procedural noise
     (render/proctex.py), env sampling uses O(1) alias tables (render/light),
@@ -38,8 +37,8 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from ..bvh.packet import PacketHit, pack_for_packets, packet_intersect
-from ..bvh.traverse import Hit, SceneBvh, intersect_scene
+from ..bvh.lane_traverse import intersect
+from ..bvh.traverse import SceneBvh
 from ..core.camera import CameraBasis, motion_vector
 from ..core.vecmath import dot, normalize
 from .bsdf import (MAT_EMISSIVE, Materials, eval_bsdf, material_lookup,
@@ -73,11 +72,6 @@ class SceneData(NamedTuple):
     sky: SkyMaps
     textures: SoilTextures
     lights: SphereLights | None = None  # analytic local lights (or None)
-    nodes4: jnp.ndarray | None = None   # packed 4-wide node table
-    #                                     (bvh/sah.py::bvh4_nodes via
-    #                                     packet.pack_nodes4) — static
-    #                                     scenes only; switches the packet
-    #                                     kernel to arity-4 traversal
 
 
 class GBuffer(NamedTuple):
@@ -124,8 +118,9 @@ def _orient_normals(ns_raw, ng_raw, wo):
     return ns, ng
 
 
-def _fetch_surface_fallback(scene: SceneData, tri, u, v, wo):
-    """Column-gather surface fetch for the non-packet (CPU test) path."""
+def _fetch_surface(scene: SceneData, tri, u, v, wo):
+    """Per-hit surface fetch: interpolated shading normal, geometric normal
+    and material id of the hit triangle."""
     t = jnp.maximum(tri, 0)
     nc = [scene.tri_nrm_t[k][t] for k in range(9)]
     n0 = jnp.stack(nc[0:3], axis=-1)
@@ -167,9 +162,9 @@ def _material_at(scene: SceneData, mat, pos, ns, cone_width,
 
 def path_trace(scene: SceneData, rays: Rays, pixel_ids, frame_idx,
                prev_basis: CameraBasis, aspect,
-               max_steps: int = 1024, use_packets: bool = True,
+               max_steps: int = 1024, trace: str = "xla",
                use_proctex: bool = True, bn=None, env_fn=None,
-               leaf_width: int = 1) -> GBuffer:
+               leaf_width: int = 1, mesh=None) -> GBuffer:
     """Trace the full bounce program for all rays; returns the G-buffer.
 
     bn: optional (N,2) blue-noise CP offsets (sampling.blue_offsets_flat) —
@@ -177,10 +172,10 @@ def path_trace(scene: SceneData, rays: Rays, pixel_ids, frame_idx,
     (reference: src/blueNoiseRandGen.h inter-pixel distribution).
     env_fn: optional (org, dir) -> (...,3) escape-environment override
     (render/environment.py composes sky + ocean + stars); default is the
-    plain Chebyshev sky fit."""
+    plain Chebyshev sky fit.
+    trace: "kernel" | "xla" — the traversal (bvh/lane_traverse.intersect);
+    mesh: optional 1-D row mesh the kernel is shard_mapped over."""
     n = rays.org.shape[0]
-    tables = pack_for_packets(scene.bvh, scene.tri_nrm_t, scene.tri_mat) \
-        if use_packets else None
     f3 = lambda: jnp.zeros((n, 3), jnp.float32)
 
     state = dict(
@@ -211,9 +206,9 @@ def path_trace(scene: SceneData, rays: Rays, pixel_ids, frame_idx,
 
     for seg in range(SEGMENTS):
         state = _segment(scene, state, pixel_ids, frame_idx, seg, max_steps,
-                         is_last=(seg == SEGMENTS - 1), tables=tables,
+                         is_last=(seg == SEGMENTS - 1), trace=trace,
                          use_proctex=use_proctex, bn=bn,
-                         leaf_width=leaf_width)
+                         leaf_width=leaf_width, mesh=mesh)
 
     # ---- deferred environment resolve: ONE analytic eval for all lanes ----
     env = (env_fn(rays.org, state["esc_dir"]) if env_fn is not None
@@ -238,20 +233,13 @@ def path_trace(scene: SceneData, rays: Rays, pixel_ids, frame_idx,
 
 
 def _segment(scene: SceneData, s, pixel_ids, frame_idx, seg, max_steps,
-             is_last, tables=None, use_proctex=True, bn=None, leaf_width=1):
+             is_last, trace="xla", use_proctex=True, bn=None, leaf_width=1,
+             mesh=None):
     active = ~s["done"]
     t_max = jnp.where(s["done"], 0.0,
                       jnp.where(s["is_shadow"], s["shadow_tmax"], jnp.inf))
-    if tables is not None:
-        ph: PacketHit = packet_intersect(
-            tables, s["org"], s["dir"], t_max,
-            tlas_internal=max(0, scene.bvh.tlas_internal),
-            leaf_width=leaf_width)
-        hit = Hit(ph.t, ph.tri, ph.u, ph.v)
-    else:
-        ph = None
-        hit = intersect_scene(scene.bvh, s["org"], s["dir"], t_max,
-                              max_steps=max_steps, leaf_width=leaf_width)
+    hit = intersect(trace, scene.bvh, s["org"], s["dir"], t_max,
+                    max_steps=max_steps, leaf_width=leaf_width, mesh=mesh)
     found = (hit.tri >= 0) & active
 
     # ---------------- shadow-ray resolution ----------------
@@ -304,13 +292,8 @@ def _segment(scene: SceneData, s, pixel_ids, frame_idx, seg, max_steps,
     wo = -s["dir"]
     pos = s["org"] + s["dir"] * hit.t[..., None]
     cone_w = s["cone"] * hit.t
-    if ph is not None:
-        ns, ng = _orient_normals(ph.ns, ph.ng, wo)
-        mat = ph.mat
-    else:
-        ns_raw, ng_raw, mat = _fetch_surface_fallback(scene, hit.tri, hit.u,
-                                                      hit.v, wo)
-        ns, ng = _orient_normals(ns_raw, ng_raw, wo)
+    ns_raw, ng_raw, mat = _fetch_surface(scene, hit.tri, hit.u, hit.v, wo)
+    ns, ng = _orient_normals(ns_raw, ng_raw, wo)
     mtype, albedo, rough, ior, f0, emission, ns = _material_at(
         scene, mat, pos, ns, cone_w, use_proctex)
 

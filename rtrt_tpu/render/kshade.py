@@ -1,8 +1,7 @@
-"""Component-form shading library for the path-trace megakernel.
+"""Component-form shading library for a fused path-trace kernel.
 
-The Pallas megakernel (render/megakernel.py) keeps every per-ray quantity as
-separate (sublane, lane)-shaped component arrays — (N,3)-style stacked
-vectors would relayout inside the kernel (ROADMAP fact #3).  This module
+A fused kernel keeps every per-ray quantity as separate component arrays
+(the twin in render/megakernel.py runs this form under XLA).  This module
 re-expresses the integrator's shading math (BSDFs, sampling warps, the
 Owen-Sobol RNG, sun NEE, procedural soil texturing) over a lightweight `V3`
 component tuple.
@@ -15,8 +14,8 @@ Every function here mirrors its stacked-array twin exactly:
   * vector helpers          -> core/vecmath.py
 
 and the equivalence is asserted by tests/test_kshade.py on random inputs.
-All math is pure elementwise jnp — it runs unchanged under Pallas on TPU
-and as plain XLA on CPU (which is how it is tested).
+All math is pure elementwise jnp — it runs as plain XLA (which is how it
+is tested) and would run unchanged inside a fused Pallas kernel.
 """
 
 from __future__ import annotations
@@ -512,8 +511,8 @@ def pack_materials_rows(materials):
 def material_select_c(read_row, n_materials: int, mat):
     """Branchless material resolve from scalar rows.
 
-    read_row(i) -> (MAT_ROW,) scalar row for material i (e.g. an SMEM/VMEM
-    ref read inside the kernel, or table[i] outside).  mat: lane i32 ids.
+    read_row(i) -> (MAT_ROW,) scalar row for material i (e.g. a ref read
+    inside a kernel, or table[i] outside).  mat: lane i32 ids.
     Returns (mtype i32, albedo V3, rough, ior, f0 V3, emission V3, textured).
     """
     zero = jnp.zeros_like(mat, jnp.float32)

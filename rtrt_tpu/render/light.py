@@ -1,6 +1,6 @@
 """Light sampling: environment (sky + sun) importance sampling + sphere lights.
 
-TPU-native counterpart of the reference's light system
+Counterpart of the reference's light system
 (reference: src/light.cuh — flux-weighted sky-vs-sun selection :150-161,
 inverse-CDF sampling :10-31/:182/:207, PDF from CDF differences :185-213,
 sphere-light cone sampling :240-270, escaped-ray radiance resolve
@@ -73,8 +73,8 @@ def sample_env_light(maps: SkyMaps, u3) -> LightSample:
     then O(1) alias-table texel selection + in-texel jitter.
 
     Replaces the reference's binary-searched CDF inversion
-    (src/light.cuh:10-31) — on TPU every gathered element is expensive, so
-    the 17-probe searchsorted becomes a 2-gather alias lookup.
+    (src/light.cuh:10-31): the 17-probe searchsorted becomes a 2-gather
+    alias lookup.
 
     u3: (...,3) uniform randoms (selector, table, accept/jitter).
     """
@@ -159,7 +159,7 @@ def sample_sun(maps: SkyMaps, u2) -> LightSample:
     """Uniform-cone sample of the sun disk with fully ANALYTIC radiance and
     pdf (limb-darkened disk x transmittance; cone pdf in closed form).
 
-    This is the TPU-preferred NEE strategy: the smooth Rayleigh sky is
+    This is the preferred NEE strategy here: the smooth Rayleigh sky is
     efficiently covered by BSDF sampling + MIS, so next-event estimation
     only needs the quasi-delta sun — and that requires no table gathers at
     all (cf. the reference's CDF maps, src/light.cuh:150-213)."""

@@ -1,39 +1,23 @@
-"""Path-trace megakernel: the ENTIRE bounce program in ONE Pallas kernel.
+"""Component-form twin of the path-trace bounce program.
 
-Round-1 profiling showed the per-segment wavefront pipeline spends ~300 ms
-per 1080p frame in the integrator's XLA elementwise tail: every bounce
-round-trips ~20 (N,)/(N,3) ray-state arrays through HBM across dozens of
-fusion boundaries (~1500 HLO ops per segment).  This kernel keeps the whole
-path state in VMEM vector registers for all SEGMENTS bounces: per ray tile
-it alternates shared-stack packet traversal (bvh/packet.traverse_tile) with
-component-form shading (render/kshade) and writes only the final G-buffer.
-One kernel launch per frame replaces the per-segment kernel + XLA-tail
-pipeline.
-
-This is the TPU answer to the reference's one-kernel-per-frame bounce
-program (reference: src/pathtrace.cuh:11-128 runs primary + glossy + diffuse
-interactions in a single megakernel): same fusion insight, but the state
-lives in (16,128) vector tiles instead of per-thread registers.
-
-Semantics mirror render/integrator.py segment-for-segment; the pure
-component-math twin `simulate_megakernel` runs the identical shading code
-under plain XLA with the wavefront traverser for CPU oracle tests
-(tests/test_megakernel.py), and the deferred-environment resolve +
-demodulation tail is shared with the integrator via `finish_gbuffer`.
+`shade_segment` re-expresses the integrator's shading
+(render/integrator.py::_segment) over per-component arrays (render/kshade),
+the form a fused one-kernel-per-frame path tracer would use (reference:
+src/pathtrace.cuh:11-128 runs primary + glossy + diffuse interactions in a
+single megakernel).  `simulate_megakernel` runs that program under plain
+XLA with the wavefront traverser; tests hold it equal to the integrator
+(tests/test_megakernel.py), which keeps the component shading library
+correct for a later fused GPU kernel.  The deferred-environment resolve +
+demodulation tail lives in `finish_gbuffer`.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, NamedTuple
 
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from ..bvh.packet import (PACKET_MAX_STEPS, STACK, TILE, TILE_SHAPE,
-                          PacketTables, traverse_tile)
 from .bsdf import MAT_EMISSIVE
 from .kshade import (MAT_ROW, BsdfSampleC, SunParamsC, V3, bwhere, eval_bsdf_c,
                      material_select_c, orient_normals_c, power_heuristic_c,
@@ -44,10 +28,7 @@ from .kshade import (MAT_ROW, BsdfSampleC, SunParamsC, V3, bwhere, eval_bsdf_c,
 
 import os as _os
 
-# scene intersects per pixel (matches integrator.SEGMENTS).  RTRT_SEGMENTS
-# overrides for trace-stage attribution A/Bs (tools/measure_battery.sh):
-# segments=1 isolates the primary-ray traversal, 3 drops the two deepest
-# bounces — the deltas split the trace stage by bounce depth.
+# scene intersects per pixel (matches integrator.SEGMENTS)
 SEGMENTS = int(_os.environ.get("RTRT_SEGMENTS", "5"))
 LIGHT_ROW = 8  # packed sphere-light row: [cx cy cz radius ex ey ez pad]
 
@@ -189,12 +170,10 @@ def shade_segment(st: PathState, hit, ctx: ShadeCtx, pix, frame, seg: int,
     mtype, albedo, rough, ior, f0, emission, textured = material_select_c(
         ctx.read_mat, ctx.n_materials, hmat)
     if ctx.use_proctex or ctx.ftex is not None:
-        # procedural soil is ~16 ms/frame of dense VPU work when run
-        # unconditionally (measured r4 A/B: 143.8 -> 127.6 with it off);
         # most tiles have NO textured lanes in late segments (done/sky
-        # lanes carry mat_id -1 or delta materials), so gate the whole
-        # evaluation on a tile-level any() — one scalar sync buys the
-        # skip.  Semantics identical: masked-out lanes never read tex_*.
+        # lanes carry mat_id -1 or delta materials), so the whole
+        # evaluation is gated on a tile-level any().  Semantics identical:
+        # masked-out lanes never read tex_*.
         # ctx.ftex switches textured materials to the FITTED image
         # textures (render/ftex.py — analytic Fourier eval, zero gathers).
         def _do_tex(a):
@@ -342,407 +321,6 @@ def _unpack_sun(read) -> SunParamsC:
         intensity=read(12), cos_theta_max=SUN_COS_THETA_MAX)
 
 
-def _mega_kernel(sun_ref, frame_ref,
-                 nodes_f_ref, tris_ref, attr_f_ref,
-                 mat_ref, light_ref,
-                 ox_ref, oy_ref, oz_ref, dx_ref, dy_ref, dz_ref,
-                 cone_ref, pix_ref, bnx_ref, bny_ref,
-                 out_o,
-                 stack_ref, tstack_ref, park_ref,
-                 nodes_f_v, tris_v, attr_f_v,
-                 tdma_sem, *sub_refs,
-                 tlas_internal, n_materials, n_lights, segments,
-                 max_steps, use_proctex, use_bn, img_mode, subtile_rows=0,
-                 arity=2, leaf_width=1, attr_hbm=False, attr_pad=False,
-                 node_pad=True, ftex=None, debug_steps=False,
-                 interpret=False):
-    # --- stage the BVH/attribute tables into VMEM ONCE (grid step 0) ---
-    # As pipelined VMEM inputs, Mosaic re-copied the whole table set from
-    # HBM on EVERY grid step (~2 s/frame at 1080p when the tables are
-    # runtime-produced).  Here they arrive in ANY (HBM) space and a single
-    # explicit DMA per table lands them in persistent VMEM scratch.
-    if img_mode:
-        step0 = (pl.program_id(0) == 0) & (pl.program_id(1) == 0)
-    else:
-        step0 = pl.program_id(0) == 0
-
-    @pl.when(step0)
-    def _copy_tables():
-        pairs = [(nodes_f_ref, nodes_f_v), (tris_ref, tris_v)]
-        if not attr_hbm:
-            # with attr_hbm the attribute table STAYS in HBM (its VMEM
-            # twin is a (2,128) row scratch for the resolve-loop DMAs) —
-            # the staging budget drops to nodes+tris, which is what lets
-            # ~1M-tri scenes ride the packet path (reference envelope:
-            # src/kernel.cuh:54-55)
-            pairs.append((attr_f_ref, attr_f_v))
-        for k, (src, dst) in enumerate(pairs):
-            pltpu.make_async_copy(src, dst, tdma_sem.at[k]).start()
-        for k, (src, dst) in enumerate(pairs):
-            pltpu.make_async_copy(src, dst, tdma_sem.at[k]).wait()
-
-    nodes_f_ref = nodes_f_v
-    if attr_hbm:
-        tris_ref = tris_v
-        attr_kw = dict(attr_hbm=True, attr_scratch=attr_f_v,
-                       attr_sem=tdma_sem)
-    else:
-        tris_ref, attr_f_ref = tris_v, attr_f_v
-        attr_kw = dict(attr_pad=attr_pad)
-    attr_kw["node_pad"] = node_pad
-
-    sun = _unpack_sun(lambda i: sun_ref[i])
-    frame = frame_ref[0].astype(jnp.uint32)
-    pix = pix_ref[...] if img_mode else pix_ref[0]
-    if use_bn:
-        bnx = bnx_ref[...] if img_mode else bnx_ref[0]
-        bny = bny_ref[...] if img_mode else bny_ref[0]
-        sampler = lambda d: rand2_bn_c(bnx, bny, frame, d)
-    else:
-        sampler = lambda d: rand2_c(pix, frame, d)
-    ctx = ShadeCtx(
-        sun=sun,
-        read_mat=lambda i: mat_ref[pl.ds(i, 1), :][0],
-        read_light=lambda i: light_ref[pl.ds(i, 1), :][0],
-        n_materials=n_materials, n_lights=n_lights, use_proctex=use_proctex,
-        rand2=sampler, ftex=ftex)
-
-    rd = (lambda r: r[...]) if img_mode else (lambda r: r[0])
-    st = init_state(V3(rd(ox_ref), rd(oy_ref), rd(oz_ref)),
-                    V3(rd(dx_ref), rd(dy_ref), rd(dz_ref)), rd(cone_ref))
-
-    import os as _os
-    # Attribute strategy is ALL-LEAN, unconditionally (r4 A/Bs, terrain
-    # 1080p, all with segment skips): all-lean 137.2 ms, all-non-lean
-    # ~144, per-segment (non-lean seg0, lean bounces) ALSO ~144 —
-    # carrying the 7 attr planes through the find loop costs more than
-    # its resolve saves at every segment.  (A split shadow/scatter
-    # dual-traversal experiment also measured slower and was removed;
-    # ROADMAP keeps both records.)
-    _lean = True
-
-    def traverse_full(org, dir, t_cap, fh):
-        return traverse_tile(
-            nodes_f_ref, tris_ref, attr_f_ref,
-            stack_ref, tstack_ref, org.x, org.y, org.z,
-            dir.x, dir.y, dir.z, t_cap,
-            tlas_internal=tlas_internal, any_hit=False, max_steps=max_steps,
-            first_hit=fh, lean=_lean,
-            arity=arity, leaf_width=leaf_width,
-            interpret=interpret, **attr_kw)
-
-    def traverse_subtiled(org, dir, t_cap, fh):
-        """Bounce-segment traversal in SUBTILE_ROWS-high strips.
-
-        Bounce rays are direction-incoherent: a whole-tile traversal pays
-        its step UNION on every lane — near the sum of per-lane node visits
-        when rays diverge, so each step's dense (th,tw) work serves few
-        lanes.  Running (sub,tw) strips sequentially does ~the same total
-        steps but TILE_SHAPE[0]/sub times less vector work per step, and a
-        strip whose lanes are ALL done (sky regions — pixel-local, so they
-        cluster at strip granularity) skips traversal entirely.  Primary
-        rays (seg 0) keep the full-tile union: image-coherent rays share it.
-        """
-        tin_ref, toutf_ref, touti_ref = sub_refs
-        th, tw = t_cap.shape
-        sub = subtile_rows
-        for k, v in enumerate((org.x, org.y, org.z, dir.x, dir.y, dir.z,
-                               t_cap, fh.astype(jnp.float32))):
-            tin_ref[pl.ds(k * th, th), :] = v
-
-        def body(k, steps_acc):
-            r0 = k * sub
-            comp = [tin_ref[pl.ds(i * th + r0, sub), :] for i in range(8)]
-            tc = comp[6]
-
-            def do_trace(_):
-                return traverse_tile(
-                    nodes_f_ref, tris_ref, attr_f_ref,
-                    stack_ref, tstack_ref, *comp[:7],
-                    tlas_internal=tlas_internal, any_hit=False,
-                    max_steps=max_steps, first_hit=comp[7] > 0.0,
-                    lean=_lean, arity=arity, leaf_width=leaf_width,
-                    interpret=interpret, **attr_kw)
-
-            def no_trace(_):
-                shp = (sub, tw)
-                zf = jnp.zeros(shp, jnp.float32)
-                return (jnp.full(shp, jnp.inf, jnp.float32),
-                        jnp.full(shp, -1, jnp.int32), zf, zf,
-                        jnp.zeros(shp, jnp.int32), zf, zf, zf, zf, zf, zf,
-                        jnp.int32(0))
-
-            res = jax.lax.cond(jnp.any(tc > 0.0), do_trace, no_trace, 0)
-            (ht, tri, hu, hv, hmat,
-             nsx, nsy, nsz, ngx, ngy, ngz, stp) = res
-            for i, v in enumerate((ht, hu, hv, nsx, nsy, nsz,
-                                   ngx, ngy, ngz)):
-                toutf_ref[pl.ds(i * th + r0, sub), :] = v
-            touti_ref[pl.ds(0 * th + r0, sub), :] = tri
-            touti_ref[pl.ds(1 * th + r0, sub), :] = hmat
-            return steps_acc + stp
-
-        steps = jax.lax.fori_loop(0, th // sub, body, jnp.int32(0))
-        f = [toutf_ref[pl.ds(i * th, th), :] for i in range(9)]
-        tri = touti_ref[pl.ds(0, th), :]
-        hmat = touti_ref[pl.ds(th, th), :]
-        return (f[0], tri, f[1], f[2], hmat,
-                f[3], f[4], f[5], f[6], f[7], f[8], steps)
-
-    total_steps = jnp.int32(0)
-    seg_steps = []
-
-    def segment_body(st, seg):
-        t_cap = jnp.where(st.done, 0.0,
-                          jnp.where(st.is_shadow, st.shadow_tmax, jnp.inf))
-
-        # --- park all non-traversal path state in VMEM scratch ---
-        # The traversal while-loop runs ~hundreds of iterations; any value
-        # live ACROSS it would otherwise be spilled/reloaded by the register
-        # allocator every iteration.  Parking makes the hand-off explicit:
-        # one store before, one load after, per segment.
-        fields = (st.beta.x, st.beta.y, st.beta.z,
-                  st.radiance.x, st.radiance.y, st.radiance.z,
-                  st.pending.x, st.pending.y, st.pending.z,
-                  st.shadow_tmax, st.prev_pdf, st.cone,
-                  st.esc_dir.x, st.esc_dir.y, st.esc_dir.z,
-                  st.esc_beta.x, st.esc_beta.y, st.esc_beta.z,
-                  st.esc_pdf,
-                  st.albedo.x, st.albedo.y, st.albedo.z,
-                  st.normal.x, st.normal.y, st.normal.z,
-                  st.depth, st.mat_id.astype(jnp.float32))
-        for k, v in enumerate(fields):
-            park_ref[k] = v
-        bits = (st.done.astype(jnp.int32)
-                | (st.is_shadow.astype(jnp.int32) << 1)
-                | (st.prev_delta.astype(jnp.int32) << 2)
-                | (st.inside.astype(jnp.int32) << 3)
-                | (st.esc_delta.astype(jnp.int32) << 4)
-                | (st.got_primary.astype(jnp.int32) << 5))
-        park_ref[27] = bits.astype(jnp.float32)
-
-        # shadow lanes resolve on ANY hit under t_cap — they leave the
-        # step union at their first occluder (bvh/packet.py first_hit)
-        fh = st.is_shadow & ~st.done
-        if subtile_rows and seg >= 1:
-            hit = traverse_subtiled(st.org, st.dir, t_cap, fh)
-        else:
-            hit = traverse_full(st.org, st.dir, t_cap, fh)
-        stp = hit[-1]
-        hit = hit[:-1]
-
-        # --- unpark ---
-        f = [park_ref[k] for k in range(27)]
-        ib = park_ref[27].astype(jnp.int32)
-        st = PathState(
-            org=st.org, dir=st.dir,
-            beta=V3(f[0], f[1], f[2]), radiance=V3(f[3], f[4], f[5]),
-            done=(ib & 1) != 0, is_shadow=(ib & 2) != 0,
-            pending=V3(f[6], f[7], f[8]),
-            shadow_tmax=f[9], prev_pdf=f[10],
-            prev_delta=(ib & 4) != 0, inside=(ib & 8) != 0, cone=f[11],
-            esc_dir=V3(f[12], f[13], f[14]), esc_beta=V3(f[15], f[16], f[17]),
-            esc_pdf=f[18], esc_delta=(ib & 16) != 0,
-            albedo=V3(f[19], f[20], f[21]), normal=V3(f[22], f[23], f[24]),
-            depth=f[25], mat_id=f[26].astype(jnp.int32),
-            got_primary=(ib & 32) != 0)
-
-        st = shade_segment(st, hit, ctx, pix, frame, seg,
-                           is_last=(seg == segments - 1))
-        return st, stp
-
-    # Mosaic cannot legalize scf.if carrying (S,128) i1 vectors (the same
-    # landmine as i1 while-loop carries, ROADMAP) — round-trip the six
-    # PathState mask planes through i32 across the segment cond.
-    _BOOLS = ("done", "is_shadow", "prev_delta", "inside", "esc_delta",
-              "got_primary")
-
-    def _masks_i32(st):
-        return st._replace(**{k: getattr(st, k).astype(jnp.int32)
-                              for k in _BOOLS})
-
-    def _masks_bool(st):
-        return st._replace(**{k: getattr(st, k) != 0 for k in _BOOLS})
-
-    for seg in range(segments):
-        if seg == 0:
-            st, stp = segment_body(st, seg)
-        else:
-            # whole-segment skip for all-done tiles: sky tiles and the
-            # late segments (measured r4: segments 4+5 together ran ~1k
-            # traversal steps but still cost 7.6 ms — nearly all of it
-            # dense shading on resolved lanes).  One any() sync per tile
-            # per segment buys skipping park+traverse+unpark+shade.
-            def _run(s, seg=seg):
-                out, n = segment_body(_masks_bool(s), seg)
-                return _masks_i32(out), n
-
-            st, stp = jax.lax.cond(
-                jnp.any(~st.done), _run,
-                lambda s: (s, jnp.int32(0)), _masks_i32(st))
-            st = _masks_bool(st)
-        total_steps = total_steps + stp
-        seg_steps.append(stp)
-
-    # single packed output plane-stack (stays in HBM: too big for XLA to
-    # elect into VMEM — see megakernel_trace)
-    esc_pdf_plane = jnp.where(st.esc_delta, -1.0, st.esc_pdf)
-    esc_planes = [st.esc_dir.x, st.esc_dir.y, st.esc_dir.z,
-                  st.esc_beta.x, st.esc_beta.y, st.esc_beta.z]
-    if debug_steps:
-        # profiling mode: overwrite the esc_pdf plane with the tile's total
-        # traversal step count, and the esc_dir/esc_beta planes with the
-        # PER-SEGMENT counts (uniform across the tile) — distinguishes the
-        # coherent primary union from the bounce-ray unions
-        esc_pdf_plane = jnp.full(esc_pdf_plane.shape,
-                                 total_steps.astype(jnp.float32))
-        for k, s in enumerate(seg_steps[:len(esc_planes)]):
-            esc_planes[k] = jnp.full(esc_pdf_plane.shape,
-                                     s.astype(jnp.float32))
-    planes = (st.radiance.x, st.radiance.y, st.radiance.z,
-              st.albedo.x, st.albedo.y, st.albedo.z,
-              st.normal.x, st.normal.y, st.normal.z,
-              st.depth, st.mat_id.astype(jnp.float32),
-              *esc_planes,
-              esc_pdf_plane)
-    for k, v in enumerate(planes):
-        if img_mode:
-            out_o[k] = v
-        else:
-            out_o[k, 0] = v
-
-
-def megakernel_trace(tables: PacketTables, mat_rows, light_rows, sun_vec,
-                     frame_idx, org, dir, cone, pixel_ids, *,
-                     tlas_internal, n_materials, n_lights,
-                     segments=SEGMENTS, max_steps=PACKET_MAX_STEPS,
-                     use_proctex=True, bn=None, subtile_rows=0, arity=2,
-                     leaf_width=1, attr_hbm=False, attr_pad=False,
-                     node_pad=True, ftex=None,
-                     debug_steps=False, interpret=False) -> MegaOut:
-    """Trace full paths for (N,3) primary rays in one Pallas launch.
-
-    Pads N to a TILE multiple internally (pad lanes duplicate ray 0 and are
-    discarded).  mat_rows: (M, MAT_ROW) from kshade.pack_materials_rows;
-    light_rows: (L, 8) from pack_light_rows; sun_vec: (16,) from
-    pack_sun_params; frame_idx: () uint32/int32 scalar.
-
-    subtile_rows > 0 runs bounce segments (seg >= 1) as sequential
-    (subtile_rows, TILE_SHAPE[1]) strip traversals instead of one
-    whole-tile union — see _mega_kernel.traverse_subtiled.
-    """
-    if subtile_rows:
-        assert subtile_rows % 8 == 0 and TILE_SHAPE[0] % subtile_rows == 0, \
-            (subtile_rows, TILE_SHAPE)
-    img_mode = org.ndim == 3  # (hp, wp, 3) image inputs vs flat (N, 3)
-    use_bn = bn is not None
-    if not use_bn:
-        bn = jnp.zeros(org.shape[:-1] + (2,), jnp.float32)
-
-    if img_mode:
-        # IMAGE route (the product path): grid over (64,128)-pixel blocks;
-        # the BlockSpec index maps do the ray tiling AND un-tiling — no
-        # host-side permutation, no reshape/transpose relayouts that would
-        # poison the denoise chain's layouts downstream (ROADMAP fact #6:
-        # measured 3x88 ms of relayout'd stencil fusions at 1080p).
-        hp, wp = org.shape[0], org.shape[1]
-        assert hp % TILE_SHAPE[0] == 0 and wp % TILE_SHAPE[1] == 0
-        grid = (hp // TILE_SHAPE[0], wp // TILE_SHAPE[1])
-        ray_spec = pl.BlockSpec(TILE_SHAPE, lambda i, j: (i, j),
-                                memory_space=pltpu.VMEM)
-        out_spec = pl.BlockSpec((18,) + TILE_SHAPE, lambda i, j: (0, i, j),
-                                memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((18, hp, wp), jnp.float32)
-        ray_in = [org[..., 0], org[..., 1], org[..., 2],
-                  dir[..., 0], dir[..., 1], dir[..., 2],
-                  cone, pixel_ids.astype(jnp.int32),
-                  bn[..., 0], bn[..., 1]]
-        n0 = None
-    else:
-        n0 = org.shape[0]
-        pad = (-n0) % TILE
-        if pad:
-            org = jnp.concatenate([org, jnp.broadcast_to(org[0], (pad, 3))])
-            dir = jnp.concatenate([dir, jnp.broadcast_to(dir[0], (pad, 3))])
-            cone = jnp.concatenate([cone, jnp.broadcast_to(cone[0], (pad,))])
-            pixel_ids = jnp.concatenate(
-                [pixel_ids, jnp.broadcast_to(pixel_ids[0], (pad,))])
-            bn = jnp.concatenate([bn, jnp.broadcast_to(bn[0], (pad, 2))])
-        n = org.shape[0]
-        nt = n // TILE
-
-        def shape(x):
-            return x.reshape((nt,) + TILE_SHAPE)
-
-        ray_in = [shape(org[:, 0]), shape(org[:, 1]), shape(org[:, 2]),
-                  shape(dir[:, 0]), shape(dir[:, 1]), shape(dir[:, 2]),
-                  shape(cone), shape(pixel_ids.astype(jnp.int32)),
-                  shape(bn[:, 0]), shape(bn[:, 1])]
-        grid = (nt,)
-        ray_spec = pl.BlockSpec((1,) + TILE_SHAPE, lambda i: (i, 0, 0),
-                                memory_space=pltpu.VMEM)
-        # ONE packed plane-stack output: a single big buffer XLA won't
-        # elect into scoped VMEM (18 separate outputs kept getting S(1)
-        # placements that blew the scoped budget at 1080p)
-        out_spec = pl.BlockSpec((18, 1) + TILE_SHAPE,
-                                lambda i: (0, i, 0, 0),
-                                memory_space=pltpu.VMEM)
-        out_shape = jax.ShapeDtypeStruct((18, nt) + TILE_SHAPE, jnp.float32)
-
-    kernel = functools.partial(
-        _mega_kernel, tlas_internal=tlas_internal, n_materials=n_materials,
-        n_lights=n_lights, segments=segments, max_steps=max_steps,
-        use_proctex=use_proctex, use_bn=use_bn, img_mode=img_mode,
-        subtile_rows=subtile_rows, arity=arity, leaf_width=leaf_width,
-        attr_hbm=attr_hbm, attr_pad=attr_pad, node_pad=node_pad, ftex=ftex,
-        debug_steps=debug_steps, interpret=interpret)
-
-    smem_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    # big tables: ANY (HBM) inputs, staged into VMEM scratch once at grid
-    # step 0 by the kernel itself (see _mega_kernel); small mat/light rows
-    # ride the normal VMEM pipeline
-    table_specs = [pl.BlockSpec(memory_space=pl.ANY)] * 3 \
-        + [pl.BlockSpec(memory_space=pltpu.VMEM)] * 2
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[smem_spec, smem_spec] + table_specs + [ray_spec] * 10,
-        out_specs=out_spec,
-        out_shape=out_shape,
-        scratch_shapes=[pltpu.SMEM((STACK + 1,), jnp.int32),
-                        pltpu.SMEM((STACK + 1,), jnp.float32),
-                        pltpu.VMEM((28,) + TILE_SHAPE, jnp.float32),
-                        pltpu.VMEM(tables.nodes_f32.shape, jnp.float32),
-                        pltpu.VMEM(tables.tris_f32.shape, jnp.float32),
-                        pltpu.VMEM((2, 128) if attr_hbm
-                                   else tables.attr_f32.shape, jnp.float32),
-                        pltpu.SemaphoreType.DMA((3,))]
-        + ([pltpu.VMEM((8 * TILE_SHAPE[0], TILE_SHAPE[1]), jnp.float32),
-            pltpu.VMEM((9 * TILE_SHAPE[0], TILE_SHAPE[1]), jnp.float32),
-            pltpu.VMEM((2 * TILE_SHAPE[0], TILE_SHAPE[1]), jnp.int32)]
-           if subtile_rows else []),
-        interpret=interpret,
-    )(sun_vec, jnp.reshape(frame_idx.astype(jnp.int32), (1,)),
-      tables.nodes_f32, tables.tris_f32, tables.attr_f32,
-      mat_rows, light_rows, *ray_in)
-
-    if img_mode:
-        flat = [outs[k] for k in range(18)]
-    else:
-        flat = [outs[k].reshape(n)[:n0] for k in range(18)]
-    (rx, ry, rz, ax, ay, az, nx, ny, nz, depth, mat,
-     edx, edy, edz, ebx, eby, ebz, epdf) = flat
-    return MegaOut(
-        radiance=jnp.stack([rx, ry, rz], axis=-1),
-        albedo=jnp.stack([ax, ay, az], axis=-1),
-        normal=jnp.stack([nx, ny, nz], axis=-1),
-        depth=depth, mat_id=mat.astype(jnp.int32),
-        esc_dir=jnp.stack([edx, edy, edz], axis=-1),
-        esc_beta=jnp.stack([ebx, eby, ebz], axis=-1),
-        esc_pdf=epdf)
-
-
 # ---------------------------------------------------------------------------
 # pure-XLA twin (CPU oracle) + shared G-buffer tail
 # ---------------------------------------------------------------------------
@@ -828,9 +406,9 @@ def finish_gbuffer(scene, rays, out: MegaOut, prev_basis, aspect,
     from .sampling import power_heuristic
     from .sky import env_radiance_fit
 
-    # Chebyshev-fit environment eval: dense VPU math (the analytic raymarch
-    # costs ~400 ms for 2M escaped rays at 1080p; the fit ~2 ms, <0.5% rel
-    # error — render/sky.py::env_radiance_fit, tested vs the analytic oracle)
+    # Chebyshev-fit environment eval: dense arithmetic instead of the
+    # analytic raymarch, <0.5% rel error (render/sky.py::env_radiance_fit,
+    # tested vs the analytic oracle)
     env = (env_fn(rays.org, out.esc_dir) if env_fn is not None
            else env_radiance_fit(scene.sky, out.esc_dir))
     lpdf = sun_pdf_dir(scene.sky, out.esc_dir)
@@ -846,107 +424,3 @@ def finish_gbuffer(scene, rays, out: MegaOut, prev_basis, aspect,
                        * jnp.minimum(out.depth, 1e8)[..., None], aspect)
     return GBuffer(color=color, albedo=out.albedo, normal=out.normal,
                    depth=out.depth, motion=mv, mat_id=out.mat_id)
-
-
-def _megakernel_trace_sharded(mesh, tables, mat_rows, light_rows, sun_vec,
-                              frame_idx, rays, pixel_ids, bn, kernel_kwargs):
-    """Row-shard the megakernel launch over a 1-D device mesh.
-
-    The Pallas kernel is a per-device program, so the SPMD frame wraps it
-    in `shard_map`: every ray/pixel image input shards along dim 0 (image
-    rows), the BVH/material/light/sun tables replicate, and each chip
-    traces only its own row block — embarrassingly parallel, zero
-    collectives (the scaling seam is the denoise/post stages downstream,
-    which XLA's partitioner handles via halo exchanges).  Requires the
-    per-shard row count to be a multiple of TILE_SHAPE[0]."""
-    try:
-        from jax import shard_map  # jax >= 0.8
-    except ImportError:  # pragma: no cover
-        from jax.experimental.shard_map import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    axis = mesh.axis_names[0]
-    n = mesh.devices.size
-    hp = rays.org.shape[0]
-    if rays.org.ndim == 3:  # image mode: per-shard rows must tile exactly
-        assert hp % (n * TILE_SHAPE[0]) == 0, \
-            (f"sharded megakernel needs rows {hp} divisible by "
-             f"{n} shards x {TILE_SHAPE[0]}-row tiles")
-    else:  # flat mode: each shard pads its own ray block internally
-        assert hp % n == 0, (hp, n)
-    use_bn = bn is not None
-    bn_arg = bn if use_bn else jnp.zeros(rays.org.shape[:-1] + (2,),
-                                         jnp.float32)
-
-    def tr(tables, mat_rows, light_rows, sun_vec, fidx, org, dir, cone,
-           pix, bn_):
-        return megakernel_trace(
-            tables, mat_rows, light_rows, sun_vec, fidx, org, dir, cone,
-            pix, bn=bn_ if use_bn else None, **kernel_kwargs)
-
-    rep, row = P(), P(axis)
-    out = shard_map(
-        tr, mesh=mesh,
-        in_specs=(rep, rep, rep, rep, rep, row, row, row, row, row),
-        out_specs=row, check_vma=False)(
-            tables, mat_rows, light_rows, sun_vec,
-            jnp.asarray(frame_idx), rays.org, rays.dir, rays.cone_width,
-            pixel_ids, bn_arg)
-    return out
-
-
-def path_trace_mega(scene, rays, pixel_ids, frame_idx, prev_basis, aspect,
-                    max_steps: int = PACKET_MAX_STEPS, use_proctex: bool = True,
-                    bn=None, subtile_rows: int = 0, interpret: bool = False,
-                    env_fn=None, debug_steps: bool = False, mesh=None,
-                    leaf_width: int = 1, attr_hbm: bool = False,
-                    attr_pad: bool = False, node_pad: bool = True,
-                    ftex=None):
-    """Drop-in replacement for integrator.path_trace using the megakernel.
-
-    debug_steps=True returns a (SEGMENTS+1, ...) per-pixel traversal
-    step-count stack — [total, seg0, seg1, ...] (uniform within each ray
-    tile) instead of a G-buffer — the step-union telemetry behind
-    `tools/profile_frame.py --trace-steps`.
-
-    mesh: optional 1-D jax.sharding.Mesh — row-shards the kernel launch
-    via shard_map (the multi-chip product path; see
-    _megakernel_trace_sharded)."""
-    from ..bvh.packet import pack_for_packets
-    from .kshade import pack_materials_rows
-
-    tables = pack_for_packets(scene.bvh, scene.tri_nrm_t, scene.tri_mat,
-                              attr_pad=attr_pad)
-    mat_rows = pack_materials_rows(scene.materials)
-    light_rows = pack_light_rows(scene.lights)
-    sun_vec = pack_sun_params(scene.sky)
-    n_lights = 0 if scene.lights is None else scene.lights.center.shape[0]
-    arity = 2
-    nodes4 = getattr(scene, "nodes4", None)
-    if nodes4 is not None:
-        # static scenes: 4-wide SAH node table (half the traversal steps,
-        # same per-fetch cost — bvh/sah.py::bvh4_nodes)
-        tables = tables._replace(nodes_f32=nodes4)
-        arity = 4
-    kw = dict(tlas_internal=max(0, scene.bvh.tlas_internal),
-              n_materials=mat_rows.shape[0], n_lights=n_lights,
-              max_steps=max_steps, use_proctex=use_proctex,
-              subtile_rows=subtile_rows, arity=arity, leaf_width=leaf_width,
-              attr_hbm=attr_hbm, attr_pad=attr_pad, node_pad=node_pad,
-              ftex=ftex, interpret=interpret, debug_steps=debug_steps)
-    if mesh is not None:
-        out = _megakernel_trace_sharded(mesh, tables, mat_rows, light_rows,
-                                        sun_vec, frame_idx, rays, pixel_ids,
-                                        bn, kw)
-    else:
-        out = megakernel_trace(
-            tables, mat_rows, light_rows, sun_vec, jnp.asarray(frame_idx),
-            rays.org, rays.dir, rays.cone_width, pixel_ids, bn=bn, **kw)
-    if debug_steps:
-        # kernel overwrites esc_pdf with the total and the esc_dir/esc_beta
-        # planes with per-segment counts (first SEGMENTS of them)
-        per_seg = [out.esc_dir[..., 0], out.esc_dir[..., 1],
-                   out.esc_dir[..., 2], out.esc_beta[..., 0],
-                   out.esc_beta[..., 1], out.esc_beta[..., 2]][:SEGMENTS]
-        return jnp.stack([out.esc_pdf] + per_seg)
-    return finish_gbuffer(scene, rays, out, prev_basis, aspect, env_fn=env_fn)

@@ -4,7 +4,7 @@ Replaces gathered mipmapped triplanar texture fetches for the terrain
 material (reference: src/surfaceInteraction.cuh:75-164 samples soil
 albedo/AO/normal/roughness textures with bicubic LOD) with 3D value noise
 evaluated IN CLOSED FORM at the shading point: per-lane hashes + trilinear
-lattice interpolation are pure VPU arithmetic, so texturing costs no memory
+lattice interpolation are pure arithmetic, so texturing costs no memory
 traffic at all.  LOD filtering is analytic too: each octave's amplitude
 fades as the ray-cone footprint exceeds its wavelength (the integral of the
 noise over the footprint tends to its mean), which is exactly what a mip
@@ -33,8 +33,8 @@ def _hash3(ix, iy, iz, seed):
     h ^= h >> 12
     h *= U32(0x297A2D39)
     h ^= h >> 15
-    # top-24-bit unit float: u32->f32 converts are unsupported on the TPU
-    # VPU (megakernel shares this hash), i32->f32 is native
+    # top-24-bit unit float via an i32->f32 convert (exact in f32's
+    # mantissa; the component-form twin shares this hash)
     return (h >> 8).astype(jnp.int32).astype(jnp.float32) \
         * jnp.float32(5.960464477539063e-08)
 
@@ -91,7 +91,7 @@ def fbm3_filtered(p, cone_width, octaves: int, base_freq: float, seed: int,
 def soil_shading(pos, ns, cone_width, world_scale: float = 0.35):
     """Full soil material: (albedo*ao (...,3), roughness (...), perturbed
     normal (...,3)) — the procedural twin of the reference's triplanar
-    soil texture set, ~150 VPU ops/lane, zero gathers."""
+    soil texture set, ~150 ops/lane, zero gathers."""
     p = pos * world_scale
     h = fbm3_filtered(p, cone_width * world_scale, 4, 1.0, seed=101)
     detail = fbm3_filtered(p, cone_width * world_scale, 3, 6.0, seed=202)

@@ -1,6 +1,6 @@
 """Primary-ray generation: thin-lens camera rays + ray cones.
 
-TPU-native counterpart of the reference's ray generation
+Counterpart of the reference's ray generation
 (reference: src/raygen.cuh:7-64): blue-noise-jittered pixel position,
 concentric-disk aperture sampling for depth of field, and the per-pixel
 ray-cone angular width used for texture LOD selection.
@@ -64,7 +64,7 @@ def generate_rays(basis: CameraBasis, width: int, height: int,
 
 def generate_rays_padded(basis: CameraBasis, width: int, height: int,
                          pixel_ids, jitter2, lens2) -> Rays:
-    """Like generate_rays but for a pre-padded pixel-id list (packet tiles):
+    """Like generate_rays but for an explicit pixel-id list:
     pixel_ids (Np,) int32 (pad entries may repeat the last pixel)."""
     aspect = width / height
     px = (pixel_ids % width).astype(jnp.float32) + 0.5

@@ -1,11 +1,11 @@
 """Low-discrepancy sampling + geometric warps.
 
-TPU-native counterpart of the reference's Heitz-Belcour blue-noise sampler
+Counterpart of the reference's Heitz-Belcour blue-noise sampler
 (reference: src/blueNoiseRandGen.h:75-156 with Sobol/scrambling/ranking data
 tables in src/blueNoiseRandGenData.h) and its Wang-hash fallback (:6-29).
 
-Rather than shipping precomputed tiles, we generate samples *in bit math* on
-the VPU: per-pixel progressive Owen-scrambled Sobol (Burley 2020, "Practical
+Rather than shipping precomputed tiles, we generate samples *in bit math*:
+per-pixel progressive Owen-scrambled Sobol (Burley 2020, "Practical
 Hash-based Owen Scrambling").  Each pixel gets its own randomized Sobol
 sequence indexed by frame number — ideal for 1-spp-per-frame temporal
 accumulation — and each sampling dimension is decorrelated by an independent
@@ -113,8 +113,7 @@ def owen_scramble(x, seed):
 
 def _to_unit_float(u):
     """uint32 -> [0, 1) float32 via the top 24 bits (exact in f32's
-    mantissa, and — unlike a direct u32->f32 convert — expressible on the
-    TPU VPU, which only casts i32<->f32; the megakernel shares this code)."""
+    mantissa; the component-form shading twin shares this code)."""
     return (u >> 8).astype(jnp.int32).astype(jnp.float32) \
         * jnp.float32(INV_2POW24)
 

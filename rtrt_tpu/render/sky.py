@@ -7,7 +7,7 @@ darkening, and builds luminance CDFs for importance sampling
 change at src/kernel.cu:285-308; the Rayleigh-Mie single-scattering model
 matches the reference's raymarched atmosphere in src/sky2.cuh:51-130).
 
-TPU-first design choices:
+Design choices:
   * the map uses the exact equal-area cylindrical (Lambert) projection —
     every texel subtends the same solid angle, so the sampling PDF is just
     normalized luminance (no sin-theta correction anywhere);
@@ -271,7 +271,9 @@ def preetham_radiance(view_dirs, params: SkyParams,
     def zen_chroma(m):
         th = jnp.stack([theta_s ** 3, theta_s ** 2, theta_s,
                         jnp.ones_like(theta_s)])
-        return tv @ jnp.asarray(m, jnp.float32) @ th
+        hi = jax.lax.Precision.HIGHEST   # full float32, not TF32
+        return jnp.dot(jnp.dot(tv, jnp.asarray(m, jnp.float32), precision=hi),
+                       th, precision=hi)
 
     yy = channel(preetham_coeffs_Y(t), yz)
     x = channel(perez_coeffs_chroma(t, _PEREZ_X), zen_chroma(_ZENITH_X))
@@ -288,7 +290,8 @@ def preetham_radiance(view_dirs, params: SkyParams,
     m = jnp.array([[3.2406, -1.5372, -0.4986],
                    [-0.9689, 1.8758, 0.0415],
                    [0.0557, -0.2040, 1.0570]], jnp.float32)
-    rgb = jnp.maximum(xyz @ m.T, 0.0)
+    rgb = jnp.maximum(jnp.dot(xyz, m.T, precision=jax.lax.Precision.HIGHEST),
+                      0.0)
 
     # below-horizon ground tint (same blend as the physical model)
     sun_up = jnp.maximum(sun[1], 0.0)
@@ -317,8 +320,8 @@ class SkyMaps(NamedTuple):
     """Baked environment state, regenerated only on parameter change.
 
     Includes O(1) Walker alias tables for importance sampling (replacing
-    binary-searched CDF inversion — TPU gathers are expensive, searchsorted
-    costs 17 of them; the alias method costs 2) and per-texel solid-angle
+    binary-searched CDF inversion — searchsorted costs 17 gathers; the
+    alias method costs 2) and per-texel solid-angle
     PDFs for MIS.  Alias tables are built host-side by
     `finalize_sky_maps` after the jitted bake."""
 
@@ -393,8 +396,7 @@ def bake_sky_maps(params: SkyParams, sky_res=SKY_RES, sun_res=SUN_RES,
     sun_pdf = sun_w / jnp.maximum(jnp.sum(sun_w), 1e-20) / sun_texel_omega
 
     # env_fit is solved host-side in float64 (finalize_sky_maps): the
-    # degree-14 normal equations are too ill-conditioned for f32 LU (and
-    # TPU's bf16-internal solve diverges visibly from CPU)
+    # degree-14 normal equations are too ill-conditioned for an f32 LU
     env_fit = jnp.zeros((2, ENV_FIT_DEG * ENV_FIT_DEG, 3), jnp.float32)
 
     zf = lambda k: jnp.zeros((k,), jnp.float32)
@@ -411,12 +413,11 @@ def bake_sky_maps(params: SkyParams, sky_res=SKY_RES, sun_res=SUN_RES,
 # ---------------------------------------------------------------------------
 #
 # Escaped rays need sky radiance per pixel.  The analytic raymarch costs
-# VIEW_STEPS x LIGHT_STEPS = 256 density/transmittance steps per ray
-# (~400 ms for 2M rays at 1080p — measured round 2), and a map lookup is a
-# per-lane gather (~8.6 ns/elem, just as hopeless).  But a clear-atmosphere
-# sky with the sun disk handled separately is SMOOTH and depends only on
-# (sin elevation, cos azimuth-to-sun), so a small tensor-Chebyshev fit of
-# the already-baked map evaluates in ~200 dense VPU flops per ray.  The fit
+# VIEW_STEPS x LIGHT_STEPS = 256 density/transmittance steps per ray, and a
+# map lookup is a per-lane gather.  But a clear-atmosphere sky with the sun
+# disk handled separately is SMOOTH and depends only on (sin elevation,
+# cos azimuth-to-sun), so a small tensor-Chebyshev fit of the already-baked
+# map evaluates in ~200 dense flops per ray.  The fit
 # is re-solved at bake time (normal equations on the equal-area grid =
 # uniform solid-angle weighting; one (B,B) solve, B = ENV_FIT_DEG^2).
 
@@ -458,9 +459,9 @@ def _fit_env_host(sky_map, sun_dir):
 
     Runs HOST-SIDE in numpy float64 (called from finalize_sky_maps): the
     degree-14 normal equations are ill-conditioned, and solving them in
-    device f32 (with TPU's bf16-internal LU) visibly shifts the fitted sky
-    and breaks CPU/TPU agreement.  f64 on host makes the coefficients
-    bit-identical on every backend.
+    device f32 visibly shifts the fitted sky and breaks agreement between
+    backends.  f64 on host makes the coefficients bit-identical on every
+    backend.
     sky_map: (H,W,3); sun_dir: (3,) -> (2, B, 3) f32 coefficients."""
     import numpy as np
     h, w = sky_map.shape[:2]
@@ -506,8 +507,7 @@ def _fit_env_host(sky_map, sun_dir):
         # SVD lstsq with an aggressive rcond cutoff, NOT normal equations:
         # the degree-196 basis is ill-conditioned enough that a raw solve
         # amplifies ~1e-5 input noise (f32 backend differences in the baked
-        # map) into O(1) coefficient swings (measured: TPU-vs-CPU fit
-        # outputs differed by up to 4.3 radiance units at the horizon).
+        # map) into O(1) coefficient swings between backends.
         # Truncating the near-null directions makes the coefficients stable
         # under input noise at negligible accuracy cost.
         sw = np.sqrt(wgt * mask)[:, None]
@@ -535,7 +535,7 @@ def _fit_env_host(sky_map, sun_dir):
 
 def env_radiance_fit(maps: SkyMaps, d):
     """Escaped-ray radiance: Chebyshev sky fit + analytic sun disk — dense
-    VPU math, no gathers, no raymarch (the production escape-path eval;
+    arithmetic, no gathers, no raymarch (the production escape-path eval;
     env_radiance_analytic is the exact oracle it is tested against)."""
     _, c, s = _env_coords(d, maps.sun_dir)
     s_min = 1.0 / maps.sky_map.shape[0]  # static shape -> python float
@@ -618,7 +618,7 @@ def sun_disk_radiance(maps: SkyMaps, d):
 
 def env_radiance_analytic(maps: SkyMaps, d):
     """Escaped-ray radiance evaluated analytically (raymarch + sun disk) —
-    pure VPU math, no map gathers.  Matches the baked maps by construction
+    pure arithmetic, no map gathers.  Matches the baked maps by construction
     (same atmosphere model)."""
     return atmosphere_radiance(d, maps.params) + sun_disk_radiance(maps, d)
 

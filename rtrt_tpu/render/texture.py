@@ -1,6 +1,6 @@
 """Mipmapped material textures with triplanar projection + ray-cone LOD.
 
-TPU-native counterpart of the reference's texture stack: 11-level mip chains
+Counterpart of the reference's texture stack: 11-level mip chains
 of 1024^2 soil albedo+AO / normal+roughness textures
 (reference: src/texture.h:14-25, mip generation src/mipgen.cu:121-182,
 loading src/init.cu:524-580) sampled with triplanar mapping and bicubic

@@ -4,7 +4,7 @@ Counterpart of the reference's dormant ocean feature
 (reference: src/water.cuh:9-188 — iterative wave heightfield raymarch,
 normal from finite differences, Fresnel water shading; gated by USE_OCEAN).
 
-TPU shape: the heightfield is pure per-lane math (no textures), the
+Shape: the heightfield is pure per-lane math (no textures), the
 "raymarch" is a fixed-trip secant search for the y=height(x,z) crossing,
 and shading blends sky reflection with depth-tinted water via Fresnel.
 Enable by giving a material MAT_OCEAN-like hook or by evaluating

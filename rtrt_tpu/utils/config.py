@@ -15,31 +15,19 @@ Counterpart of the reference's three config tiers (SURVEY.md §5.6):
 Uses stdlib tomllib; no third-party TOML dependency.
 
 A fourth tier — RTRT_* environment knobs — exists for operators and
-perf/debug tooling.  The COMPLETE registry (pruned round 5; measured-loser
-levers were deleted, probe-surgery flags consolidated):
+perf/debug tooling.  The COMPLETE registry:
 
-  RTRT_TILE_SHAPE        packet tile "HxW" (default 32x128; tune_tile.py)
   RTRT_SEGMENTS          bounce-program depth (default 5 scene intersects)
-  RTRT_VMEM_TABLE_BUDGET_MB  VMEM staging budget gate (default 96) —
-                         drives full / full_pad / attr_hbm / wavefront
   RTRT_DEBUG             =1: live NaN guards + safe gathers in the frame
   RTRT_HISTORY_FILTER    history resampling: catmull_rom (default) |
                          bilinear (denoise/reproject.py)
-  RTRT_ALLOW_WAVEFRONT   =1: allow the XLA wavefront path on TPU beyond
-                         demo scale (normally fenced — engine.py)
-  RTRT_BOUNCE_SUBTILE    bounce-segment strip rows (default 32; 0 = off)
-  RTRT_MEGAKERNEL        =0: disable the Pallas megakernel (debug)
   RTRT_PRECOMPILE        =0: disable background bucket precompiles
   RTRT_PREBUILD          =0: force the per-frame in-jit LBVH rebuild
   RTRT_LEAF_WIDTH        row-aligned SAH leaf width (default 8; 1 = off)
-  RTRT_SAH               tree build: 4 = SAH+BVH4 (default), 2 = binary
-                         SAH, 0 = two-level morton LBVH
-  RTRT_REFIT             =0: disable the animated-scene refit path
-  RTRT_COUNT             telemetry plane: leaf | drops | resolve
-  RTRT_SURGERY           comma list of timing-only kernel surgery modes
+  RTRT_SAH               =0: static scenes prebuild the two-level morton
+                         LBVH instead of the flat binned-SAH tree
   RTRT_INTERLACE         =1/0: interlaced sparse rendering override
                          (GlobalSettings.interlace is the API)
-                         (images WRONG; see bvh/packet.py registry)
 """
 
 from __future__ import annotations
@@ -85,8 +73,8 @@ class GlobalSettings:
     #   (fitted analytic daylight — the reference's active-sky family)
     interlace: bool = False          # interlaced sparse rendering: trace
     #   half the pixel rows per frame (alternating parity), reconstruct
-    #   full-res before the denoiser (engine/frame.py) — the TPU-native
-    #   perf/latency trade next to dynamic_resolution
+    #   full-res before the denoiser (engine/frame.py) — a perf/latency
+    #   trade next to dynamic_resolution
     frame_cap_fps: float = 75.0      # reference: 75-fps busy-wait floor
     dynamic_resolution: DynamicResolution = dataclasses.field(
         default_factory=DynamicResolution)
@@ -147,14 +135,9 @@ class FeatureFlags:
     dither: bool = True
     textures: bool = True
     procedural_textures: bool = True  # analytic noise (zero-gather) vs mips
-    fourier_textures: bool = False  # megakernel textured materials from the
-    #   FITTED image-texture set (render/ftex.py: analytic Fourier eval of
-    #   the soil textures with exact Gaussian LOD) instead of procedural
-    #   noise — the TPU-native stand-in for the reference's in-kernel mip
-    #   atlas sampling (src/surfaceInteraction.cuh:75-164)
     rebuild_bvh_every_frame: bool = True
     blue_noise: bool = True  # inter-pixel blue-noise sample distribution
-    half_history: bool = True  # bf16 persistent history buffers (the TPU
+    half_history: bool = True  # bf16 persistent history buffers (the
     #   analog of the reference's half-precision history surfaces,
     #   src/fp16Utils.cuh + buffer formats at src/init.cu:473-500)
     ocean: bool = False  # raymarched wave-heightfield environment ocean

@@ -1,6 +1,6 @@
 """Debug utilities: NaN detection, bounds-checked gathers, array dumps.
 
-TPU-native counterpart of the reference's debug layer
+Counterpart of the reference's debug layer
 (reference: src/debugUtil.h — NAN_DETECTER :143-159, SAFE_LOAD bounds
 checks :162-183, CSV device-array dumps :106-129, center-pixel print :11-17,
 PPM frame dump :78-103).

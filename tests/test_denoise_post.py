@@ -218,97 +218,3 @@ def test_sharpen_median(img):
     assert out.shape == (H, W, 3)
     med = np.asarray(median3(img))
     assert med.std() <= np.asarray(img).std()
-
-
-@pytest.mark.slow
-def test_wide_pass_pallas_matches_xla():
-    """The windowed-DMA Pallas wide pass (interpret mode) must match the
-    XLA shift-stencil twin bit-for-bit in structure (same tap math)."""
-    import jax.numpy as jnp
-    import numpy as np
-    from rtrt_tpu.denoise.spatial import _edge_aware_pass, _wide_pass_pallas
-    from rtrt_tpu.utils.config import default_params
-
-    rng = np.random.default_rng(7)
-    h, w = 40, 96
-    color = jnp.asarray(rng.random((h, w, 3), np.float32))
-    n = rng.normal(size=(h, w, 3)).astype(np.float32)
-    n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    normal = jnp.asarray(n)
-    depth = jnp.asarray(rng.random((h, w), np.float32) * 10 + 1)
-    # sky region with inf depth exercises the isfinite paths
-    depth = depth.at[:5, :9].set(jnp.inf)
-    mat = jnp.asarray((rng.random((h, w)) * 3).astype(np.int32))
-    p = default_params().denoise
-    for stride in (3, 12):
-        ref = _edge_aware_pass(color, normal, depth, mat, p,
-                               radius=2, stride=stride)
-        got = _wide_pass_pallas(color, normal, depth, mat, p,
-                                stride, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=2e-5, atol=2e-5)
-
-
-@pytest.mark.slow
-def test_post_tail_pallas_matches_xla():
-    """Fused tonemap+sharpen+dither+quantize Pallas tail (post/tail.py)
-    matches the XLA ops it replaces within 1 u8 step, for all 4 tone
-    mappers and all sharpen/dither flag combinations."""
-    from rtrt_tpu.post.sharpen import sharpen
-    from rtrt_tpu.post.tail import post_tail_pallas
-    from rtrt_tpu.post.tonemap import tonemap
-    from rtrt_tpu.render.sampling import (_to_unit_float, blue_noise_mask,
-                                          hash_pcg)
-
-    rng = np.random.default_rng(3)
-    h, w = 96, 640
-    color = jnp.asarray(rng.uniform(0, 6, (h, w, 3)).astype(np.float32))
-    ev, gamma, amt = 0.8, 2.2, 0.5
-    fshift = _to_unit_float(hash_pcg(jnp.uint32(7)))
-    mask = blue_noise_mask()[:, :, 0]
-
-    for tone in range(4):
-        for do_sharpen, do_dither in ((True, True), (False, False),
-                                      (True, False)):
-            got = post_tail_pallas(color, ev, tone, gamma, amt, fshift,
-                                   mask, do_sharpen=do_sharpen,
-                                   do_dither=do_dither, interpret=True)
-            ldr = tonemap(color * ev, jnp.float32(tone), jnp.float32(gamma))
-            if do_sharpen:
-                ldr = sharpen(ldr, jnp.float32(amt))
-            if do_dither:
-                m = jnp.asarray(mask)
-                tiled = jnp.tile(m, (-(-h // 64), -(-w // 64)))[:h, :w]
-                noise = (tiled + fshift) % 1.0 - 0.5
-                ldr = ldr + noise[..., None] / 255.0
-            ref = jnp.clip(ldr * 255.0 + 0.5, 0.0, 255.0).astype(jnp.uint8)
-            d = np.abs(np.asarray(got, np.int32) - np.asarray(ref, np.int32))
-            assert d.max() <= 1, (tone, do_sharpen, do_dither, d.max())
-
-
-@pytest.mark.slow
-def test_spatial_7x7_pallas_matches_xla():
-    """The windowed Pallas form of SpatialFilter7x7 (radius 3, stride 1,
-    frame-alternating half kernel) matches the XLA tap-accumulation twin
-    for both parities."""
-    from rtrt_tpu.denoise.spatial import _edge_aware_pass, _wide_pass_pallas
-    from rtrt_tpu.utils.config import default_params
-
-    rng = np.random.default_rng(11)
-    h, w = 40, 96
-    color = jnp.asarray(rng.random((h, w, 3), np.float32))
-    n = rng.normal(size=(h, w, 3)).astype(np.float32)
-    n /= np.linalg.norm(n, axis=-1, keepdims=True)
-    normal = jnp.asarray(n)
-    depth = jnp.asarray(rng.random((h, w), np.float32) * 10 + 1)
-    depth = depth.at[:5, :9].set(jnp.inf)
-    mat = jnp.asarray((rng.random((h, w)) * 3).astype(np.int32))
-    p = default_params().denoise
-    for parity in (0, 1):
-        ref = _edge_aware_pass(color, normal, depth, mat, p, radius=3,
-                               stride=1, half_taps=True, parity=parity)
-        got = _wide_pass_pallas(color, normal, depth, mat, p, stride=1,
-                                radius=3, half_taps=True, parity=parity,
-                                interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                                   rtol=2e-5, atol=2e-5)

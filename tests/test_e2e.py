@@ -4,8 +4,8 @@ The analog of the reference's golden-frame dumps (reference: DUMP_FRAME_NUM
 at src/kernel.cuh:44-45): render the demo scene through the real frame
 program (LBVH rebuild -> path trace -> denoise -> postprocess -> u8) and
 assert structural image properties + determinism.  Runs the portable XLA
-wavefront path (CPU); the Pallas packet path is cross-checked against it on
-TPU (see bvh tests + verify skill).
+wavefront path (CPU); the GPU traversal kernel is checked against it in
+tests/test_lane_traverse.py and on the card by chip_smoke.py.
 """
 
 import jax
@@ -35,7 +35,7 @@ def frame_setup():
     pad = padded_arrays(scene)
     static = FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
                          num_batches=scene.num_batches,
-                         flags=FeatureFlags(), use_packets=False)
+                         flags=FeatureFlags())
     sky = finalize_sky_maps(jax.jit(lambda p: bake_sky_maps(
         p, sky_res=(32, 64), sun_res=(8, 8)))(make_sky_params()))
     textures = make_soil_textures(32)

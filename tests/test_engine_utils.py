@@ -211,7 +211,7 @@ def test_tile_parallel_dryrun(cpu_mesh_devices):
     import numpy as np
     from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
     from rtrt_tpu.parallel.tile import AXIS, _global_histogram, _halo_exchange
-    from rtrt_tpu.parallel.tile import SM_NOCHECK, shard_map
+    from rtrt_tpu.parallel.tile import shard_map
 
     mesh = Mesh(np.array(cpu[:4]), (AXIS,))
     img = jnp.arange(4 * 8 * 2 * 3, dtype=jnp.float32).reshape(32, 2, 3)
@@ -220,7 +220,7 @@ def test_tile_parallel_dryrun(cpu_mesh_devices):
         return _halo_exchange(x, 2, AXIS)
 
     out = shard_map(body, mesh=mesh, in_specs=P(AXIS), out_specs=P(AXIS),
-                    **SM_NOCHECK)(img)
+                    check_vma=False)(img)
     out = np.asarray(out)
     assert out.shape == (4 * (8 + 4), 2, 3)
     # middle shard's upper halo equals the previous shard's bottom rows
@@ -234,7 +234,7 @@ def test_tile_parallel_dryrun(cpu_mesh_devices):
 
     lum = jnp.abs(img[..., 0])
     h = shard_map(hist_body, mesh=mesh, in_specs=P(AXIS),
-                  out_specs=P(), **SM_NOCHECK)(lum)
+                  out_specs=P(), check_vma=False)(lum)
     assert float(jnp.sum(h)) == lum.size
 
 
@@ -352,7 +352,7 @@ def test_precompile_bucket_async_runs(monkeypatch):
         def __call__(self, *a):
             return ()
 
-    def fake_make_frame_fn(static, refit_plan=None):
+    def fake_make_frame_fn(static):
         calls.append((static.render_w, static.render_h))
         return FakeFn()
 
@@ -367,7 +367,8 @@ def test_precompile_bucket_async_runs(monkeypatch):
             self.flags = FeatureFlags()
             self._frame_fns = {540: object()}
             self._precompiling = set()
-            self._refit_plan = None
+            self._trace = "xla"
+            self._sah_leaf = 1
             # frame args (content irrelevant — FakeFn ignores them)
             self.indices = self.tri_mat = self.valid = None
             self.materials = self.textures = self.sky = self.lights = None
@@ -456,43 +457,18 @@ def test_nan_guards_live_in_frame(capfd):
     assert 'nan_guard' in src and 'trace.radiance' in src
 
 
-def test_packet_tables_fit_gate():
-    """Scene-size gating (reference envelope: 1M tris, src/kernel.cuh:54-55):
-    small scenes stage ALL tables into VMEM ("full"); the ~1M-tri envelope
-    rides the packet path with the attribute table left in HBM
-    ("attr_hbm", resolve-loop record DMAs); only scenes beyond even that
-    fall back to the wavefront traverser ("none")."""
-    from rtrt_tpu.engine.engine import packet_fit_mode, packet_tables_fit
-    assert packet_fit_mode(36) == "full"       # terrain (36.8k tris)
-    assert packet_fit_mode(226) == "full"      # terrain_big (231k tris)
-    assert packet_fit_mode(1004) == "attr_hbm"  # terrain_huge (1.03M tris)
-    assert packet_fit_mode(2800) == "none"     # beyond the nodes+tris budget
-    # two-level LBVH trees (no SAH collapse) pay ~64 B/tri of nodes: the
-    # 1M envelope does NOT fit even attr_hbm there
-    assert packet_fit_mode(1004, sah_leaf8=False) == "none"
-    assert packet_tables_fit(226) and packet_tables_fit(1004)
-    assert not packet_tables_fit(2800)
-
-
-def test_wavefront_fence_beyond_envelope(monkeypatch):
-    """Beyond the packet VMEM envelope the TPU has no working product-scale
-    path (the XLA wavefront fallback device-faults above demo resolution,
-    PARITY.md envelope table) — the engine must hard-reject the config
-    with a clear error instead of silently reaching a faulting path."""
-    from rtrt_tpu.engine import engine as eng_mod
+def test_engine_static_wiring():
+    """The Engine's static frame config: the trace route from the backend
+    (the XLA reference on the CPU), the prebuilt SAH tree's leaf width, and
+    GlobalSettings.interlace reaching the frame (host-side setup only)."""
+    from rtrt_tpu.engine.engine import Engine
     from rtrt_tpu.utils.config import DynamicResolution, GlobalSettings
-    monkeypatch.setattr(eng_mod, "_tpu_available", lambda: True)
-    monkeypatch.setenv("RTRT_VMEM_TABLE_BUDGET_MB", "0.001")
-    monkeypatch.delenv("RTRT_ALLOW_WAVEFRONT", raising=False)
     settings = GlobalSettings(
-        render_width=1920, render_height=1080, scene="demo",
-        texture_size=32,
+        render_width=480, render_height=270, scene="demo", texture_size=32,
         dynamic_resolution=DynamicResolution(enabled=False))
-    with pytest.raises(RuntimeError, match="packet-traversal VMEM envelope"):
-        eng_mod.Engine(settings)
-    # demo-scale (<=480x270) stays allowed: recorded working on the v5e
-    small = dataclasses.replace(settings, render_width=480, render_height=270)
-    eng_mod.Engine(small)  # must not raise (host-side setup only)
-    # explicit override re-enables the path at any scale
-    monkeypatch.setenv("RTRT_ALLOW_WAVEFRONT", "1")
-    eng_mod.Engine(settings)
+    eng = Engine(settings)
+    assert eng._static.trace == "xla"
+    assert eng._static.sah_leaf == 8 and len(eng.prebuilt) == 3
+    assert not eng._static.interlace
+    eng = Engine(dataclasses.replace(settings, interlace=True))
+    assert eng._static.interlace

@@ -36,7 +36,7 @@ def spmd_setup(request):
     pad = padded_arrays(scene)
     static = FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
                          num_batches=scene.num_batches,
-                         flags=FeatureFlags(), use_packets=False)
+                         flags=FeatureFlags())
     sky = finalize_sky_maps(jax.jit(lambda p: bake_sky_maps(
         p, sky_res=(32, 64), sun_res=(8, 8)))(make_sky_params()))
     textures = make_soil_textures(32)
@@ -122,25 +122,6 @@ def test_spmd_history_stays_sharded(spmd_setup, cpu_mesh_devices):
     jax.block_until_ready(img)
     spec = new_state.history.color.sharding.spec
     assert spec and spec[0] == AXIS, spec
-
-
-def test_sharded_megakernel_matches_single(cpu_mesh_devices):
-    """The Pallas megakernel under shard_map (the real-pod trace path,
-    render/megakernel.py::_megakernel_trace_sharded) must match the
-    single-device launch lane for lane — rows shard, tables replicate,
-    zero collectives.  Interpret mode stands in for the TPU backend."""
-    from jax.sharding import Mesh
-
-    from rtrt_tpu.render.megakernel import path_trace_mega
-    from test_megakernel import _gbuffers_close, build_setup
-
-    scene, rays, pixel_ids, frame, basis = build_setup()
-    ref = path_trace_mega(scene, rays, pixel_ids, frame, basis, 2.0,
-                          interpret=True)
-    mesh = Mesh(np.asarray(cpu_mesh_devices[:2]), ("rows",))
-    got = path_trace_mega(scene, rays, pixel_ids, frame, basis, 2.0,
-                          interpret=True, mesh=mesh)
-    _gbuffers_close(ref, got, frac=0.995)
 
 
 def test_sharded_refit_matches_replicated(cpu_mesh_devices):

@@ -95,7 +95,7 @@ def test_segment_sum():
 
 
 def test_onehot_permute_exact(rng):
-    """MXU one-hot gather == take_along_axis bit-exactly (f32 and i32)."""
+    """One-hot matmul gather == take_along_axis bit-exactly (f32 and i32)."""
     from rtrt_tpu.ops.gather import onehot_permute
     b, n, c = 3, 256, 5
     vals = jnp.asarray(rng.normal(size=(b, n, c)).astype(np.float32) * 1e3)

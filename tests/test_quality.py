@@ -55,8 +55,7 @@ def setup():
 
     def mk(flags):
         st = FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
-                         num_batches=scene.num_batches, flags=flags,
-                         use_packets=False)
+                         num_batches=scene.num_batches, flags=flags)
         return jax.jit(partial(render_frame, st))
 
     def state0():

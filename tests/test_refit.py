@@ -4,8 +4,7 @@ The refit path freezes the init-time SAH/BVH4 topology and recomputes all
 boxes per frame from the displaced sorted triangle table.  Checks:
   * refit at the rest pose reproduces the builder's boxes exactly;
   * after displacement, every node box contains its children (validity)
-    and packet traversal over the refitted tree matches brute force over
-    the displaced triangles;
+    and the row-form displacement matches the vertex form;
   * the analytic wave normal transform (engine/frame.py::wave_normal_rows)
     matches a numerical tangent-frame recompute.
 """
@@ -15,10 +14,8 @@ import pytest
 
 import jax.numpy as jnp
 
-from rtrt_tpu.bvh.packet import pack_for_packets, pack_nodes4, packet_intersect
 from rtrt_tpu.bvh.refit import leaf_bounds, plan_refit4, refit_nodes4
 from rtrt_tpu.bvh.sah import build_scene_bvh_sah, bvh4_nodes
-from rtrt_tpu.bvh.traverse import intersect_brute
 from rtrt_tpu.bvh.types import BATCH_SIZE
 from rtrt_tpu.engine.frame import (displace_wave, displace_wave_rows,
                                    wave_normal_rows)
@@ -103,7 +100,7 @@ def _node_boxes_valid(nodes4, leaf_lo, leaf_hi, leaf_width):
 
 
 @pytest.mark.slow
-def test_refit_displaced_traces_match_brute(rng):
+def test_refit_displaced_boxes_valid(rng):
     bvh, raw4, plan, _ = _build(rng)
     t_now = jnp.float32(1.7)
     tt = displace_wave_rows(bvh.tris_t, t_now)
@@ -125,22 +122,6 @@ def test_refit_displaced_traces_match_brute(rng):
         vtx = t0[rowbase:rowbase + 3, :nv].T
         expect = np.asarray(displace_wave(jnp.asarray(vtx), t_now))
         np.testing.assert_allclose(dv, expect, atol=1e-6)
-
-    bvh_d = bvh._replace(tris_t=tt)
-    tables = pack_for_packets(bvh_d)._replace(
-        nodes_f32=pack_nodes4(refitted))
-    org = jnp.asarray(rng.uniform(-15, 15, (256, 3)).astype(np.float32))
-    d = rng.normal(size=(256, 3)).astype(np.float32)
-    d = jnp.asarray(d / np.linalg.norm(d, axis=-1, keepdims=True))
-    ph = packet_intersect(tables, org, d, tlas_internal=0, arity=4,
-                          leaf_width=plan.leaf_width, interpret=True,
-                          max_steps=16384)
-    hb = intersect_brute(org, d, jnp.asarray(dv0), jnp.asarray(dv1),
-                         jnp.asarray(dv2))
-    pt, tb = np.asarray(ph.t), np.asarray(hb.t)
-    assert (np.isfinite(pt) == np.isfinite(tb)).all()
-    m = np.isfinite(pt)
-    np.testing.assert_allclose(pt[m], tb[m], rtol=1e-4, atol=1e-4)
 
 
 def test_wave_normal_rows_matches_numerical_jacobian(rng):

@@ -415,8 +415,7 @@ def test_frame_with_ocean_and_stars_flags():
     pad = padded_arrays(scene)
     flags = FeatureFlags(ocean=True, stars=True, postprocess=False)
     static = FrameStatic(render_w=W, render_h=H, screen_w=W, screen_h=H,
-                         num_batches=scene.num_batches, flags=flags,
-                         use_packets=False)
+                         num_batches=scene.num_batches, flags=flags)
     sky = finalize_sky_maps(jax.jit(lambda p: bake_sky_maps(
         p, sky_res=(32, 64), sun_res=(8, 8)))(make_sky_params()))
     tex = make_soil_textures(16)

@@ -1,7 +1,6 @@
-"""Tile-shift history reprojection == gather oracle, and accumulation
-survives multi-pixel motion (the round-1 ±1 px stencil reset it).
-
-Runs the Pallas kernel in interpret mode so the suite stays CPU-clean.
+"""Gather history reprojection: exact at whole-pixel motion, rejects
+history that leaves the image, and accumulation survives multi-pixel motion
+(the round-1 ±1 px stencil reset it).
 """
 
 import jax
@@ -10,12 +9,11 @@ import numpy as np
 import pytest
 
 from rtrt_tpu.denoise.pipeline import DenoiseHistory, init_history
-from rtrt_tpu.denoise.reproject import (R, Reprojection, reproject_gather,
-                                        reproject_tile_shift)
+from rtrt_tpu.denoise.reproject import Reprojection, reproject_gather
 from rtrt_tpu.denoise.temporal import temporal_filter
 from rtrt_tpu.utils.config import default_params
 
-H, W = 64, 160  # forces padding (160 % 128 != 0) and >1 tile per axis
+H, W = 64, 160
 
 
 def _history(rng):
@@ -36,52 +34,39 @@ def _smooth_motion(rng, scale_px=5.0):
     return jnp.asarray(np.stack([mx, my], -1).astype(np.float32))
 
 
-@pytest.mark.parametrize("scale_px", [0.0, 2.5, 7.0])
-def test_tile_shift_matches_gather(rng, scale_px):
+@pytest.mark.parametrize("dy,dx", [(0, 0), (0, 3), (5, -2)])
+def test_gather_integer_shift_is_exact(rng, dy, dx):
+    """At whole-pixel motion every filter tap but the centre has weight 0,
+    so the reprojected history is the history shifted by (dy, dx)."""
     col, col2, dep, mat, cnt = _history(rng)
-    motion = _smooth_motion(rng, scale_px)
-    got: Reprojection = reproject_tile_shift(col, col2, dep, mat, cnt,
-                                             motion, interpret=True)
-    ref: Reprojection = reproject_gather(col, col2, dep, mat, cnt, motion)
-
-    # compare on lanes both modes resolve, away from image borders (the
-    # gather clamps at edges, the window does not)
-    margin = int(np.ceil(scale_px)) + 1
-    interior = np.zeros((H, W), bool)
-    interior[margin:H - margin, margin:W - margin] = True
-    m = np.asarray(got.ok) & np.asarray(ref.ok) & interior
-    assert m.mean() > 0.5  # smooth motion must mostly resolve
-
-    # atol 1e-4: the kernel folds wy*wx before the FMA, the oracle is
-    # separable — last-ulp weight differences only
-    np.testing.assert_allclose(np.asarray(got.color)[m],
-                               np.asarray(ref.color)[m], rtol=1e-4, atol=1e-4)
-    np.testing.assert_allclose(np.asarray(got.color2)[m],
-                               np.asarray(ref.color2)[m], rtol=1e-4,
-                               atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(got.mat_id)[m],
-                                  np.asarray(ref.mat_id)[m])
-    np.testing.assert_allclose(np.asarray(got.depth)[m],
-                               np.asarray(ref.depth)[m], rtol=1e-6)
-    np.testing.assert_allclose(np.asarray(got.count)[m],
-                               np.asarray(ref.count)[m], rtol=1e-6)
+    motion = jnp.asarray(np.stack(
+        [np.full((H, W), dx / W, np.float32),
+         np.full((H, W), dy / H, np.float32)], -1))
+    got: Reprojection = reproject_gather(col, col2, dep, mat, cnt, motion)
+    ys = slice(max(0, -dy), H - max(0, dy))
+    xs = slice(max(0, -dx), W - max(0, dx))
+    src = lambda a: np.asarray(a)[max(0, dy):H - max(0, -dy),
+                                  max(0, dx):W - max(0, -dx)]
+    assert np.asarray(got.ok)[ys, xs].all()
+    np.testing.assert_allclose(np.asarray(got.color)[ys, xs], src(col),
+                               rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(got.color2)[ys, xs], src(col2),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(got.mat_id)[ys, xs], src(mat))
+    np.testing.assert_array_equal(np.asarray(got.depth)[ys, xs], src(dep))
+    np.testing.assert_array_equal(np.asarray(got.count)[ys, xs], src(cnt))
 
 
-def test_tile_shift_ok_rejects_discontinuity(rng):
-    """A hard motion seam INSIDE a tile (parallax-style) must reject that
-    tile's lanes (count resets, as SVGF disocclusion wants) while tiles with
-    coherent motion resolve fully.  Seam at y=16, i.e. mid-tile (TILE_H=32):
-    tile row 0 averages to base 0 and can satisfy neither ±20 px half;
-    tile row 1 (rows 32..63) is uniform and resolves."""
+def test_gather_rejects_motion_off_image(rng):
+    """Pixels whose history position leaves the image report ok=False (the
+    temporal filter then restarts them, SVGF disocclusion semantics)."""
     col, col2, dep, mat, cnt = _history(rng)
-    my = np.full((H, W), -20.0 / H, np.float32)
-    my[:16, :] = 20.0 / H
-    motion = jnp.asarray(np.stack([np.zeros_like(my), my], -1))
-    got = reproject_tile_shift(col, col2, dep, mat, cnt, motion,
-                               interpret=True)
-    ok = np.asarray(got.ok)
-    assert ok[40:60, :].mean() > 0.9   # coherent tile resolves
-    assert ok[:32, :].mean() < 0.1     # seam tile rejects
+    motion = jnp.asarray(np.stack(
+        [np.full((H, W), 10.0 / W, np.float32),
+         np.zeros((H, W), np.float32)], -1))
+    ok = np.asarray(reproject_gather(col, col2, dep, mat, cnt, motion).ok)
+    assert not ok[:, W - 10:].any()
+    assert ok[:, :W - 10].all()
 
 
 def test_accumulation_survives_multi_pixel_pan(rng):
@@ -99,9 +84,8 @@ def test_accumulation_survives_multi_pixel_pan(rng):
     hist = DenoiseHistory(color=color, color2=color, depth=depth,
                           mat_id=mat, valid=jnp.asarray(True),
                           count=jnp.full((H, W), 7.0, jnp.float32))
-    rep = reproject_tile_shift(hist.color, hist.color2, hist.depth,
-                               hist.mat_id, hist.count, motion,
-                               interpret=True)
+    rep = reproject_gather(hist.color, hist.color2, hist.depth,
+                           hist.mat_id, hist.count, motion)
     out, new_count = temporal_filter(
         color, normal, depth, mat, motion, hist.color, hist.depth,
         hist.mat_id, hist.valid, p, hist_count=hist.count,
@@ -127,11 +111,9 @@ def test_denoise_pipeline_gather_mode_runs(rng):
     hist = init_history(H, W)
     out, new_hist = jax.jit(
         lambda c, h: denoise(c, albedo, normal, depth, mat, motion, h,
-                             default_params().denoise, FeatureFlags(),
-                             reproject_mode="gather"))(color, hist)
+                             default_params().denoise, FeatureFlags()))(color, hist)
     assert np.isfinite(np.asarray(out)).all()
     out2, _ = jax.jit(
         lambda c, h: denoise(c, albedo, normal, depth, mat, motion, h,
-                             default_params().denoise, FeatureFlags(),
-                             reproject_mode="gather"))(color, new_hist)
+                             default_params().denoise, FeatureFlags()))(color, new_hist)
     assert np.isfinite(np.asarray(out2)).all()

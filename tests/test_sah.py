@@ -2,7 +2,7 @@
 
 Mirrors the LBVH property tests (test_bvh.py): closest hit through the SAH
 tree must equal brute force over all triangles, for both the wavefront
-traverser and the packet kernel (interpret mode).  Also checks the tree is
+traverser and the GPU lane kernel (interpret mode).  Also checks the tree is
 a well-formed binary tree (every leaf reachable exactly once, child boxes
 contain their subtrees) and that the native C++ builder agrees with the
 numpy fallback on tree quality.
@@ -122,33 +122,6 @@ def test_sah_closest_hit_vs_brute(rng):
                                atol=1e-4)
 
 
-def test_sah_packet_kernel_interpret(rng):
-    """Packet kernel (interpret mode) traverses the flat SAH tree exactly
-    like the wavefront traverser — exercises the 22-bit flat node row
-    decode in bvh/packet.py."""
-    from rtrt_tpu.bvh.packet import pack_for_packets, packet_intersect
-
-    v0, v1, v2 = _random_tri_soup(rng, 300, spread=6.0)
-    bv0, bv1, bv2, valid = _pad_batches(v0, v1, v2, 2)
-    bvh = build_scene_bvh_sah(bv0, bv1, bv2, valid)
-    tables = pack_for_packets(bvh)
-
-    nrays = 128
-    org = jnp.asarray(rng.uniform(-12, 12, (nrays, 3)).astype(np.float32))
-    dirs = jnp.asarray(_normalize(
-        rng.normal(size=(nrays, 3)).astype(np.float32)))
-
-    ph = packet_intersect(tables, org, dirs, tlas_internal=0,
-                          interpret=True, max_steps=16384)
-    wh = intersect_scene(bvh, org, dirs, max_steps=16384)
-    pt, wt = np.asarray(ph.t), np.asarray(wh.t)
-    both = np.isfinite(pt) & np.isfinite(wt)
-    same_miss = ~np.isfinite(pt) & ~np.isfinite(wt)
-    assert (both | same_miss).all()
-    np.testing.assert_allclose(pt[both], wt[both], rtol=1e-4, atol=1e-4)
-    assert (np.asarray(ph.tri) == np.asarray(wh.tri))[both].mean() > 0.99
-
-
 def test_sah_tables_match_engine_contract(rng):
     """build_scene_tables_sah returns attribute tables aligned with the
     sorted leaf order (normals/materials follow the permutation)."""
@@ -180,19 +153,16 @@ def test_sah_tables_match_engine_contract(rng):
 
 
 @pytest.mark.slow
-def test_sah4_packet_kernel_interpret(rng):
-    """Arity-4 packet traversal over the collapsed SAH tree matches the
-    wavefront traverser on the binary tree (same leaves, same geometry)."""
-    from rtrt_tpu.bvh.packet import (PacketTables, pack_for_packets,
-                                     pack_nodes4, packet_intersect)
+def test_sah4_collapse_covers_every_leaf(rng):
+    """The 4-wide collapse of the SAH tree (library code for a future
+    4-wide traversal and the refit path): native and numpy collapses are
+    both valid 4-ary trees covering every leaf once."""
     from rtrt_tpu.bvh.sah import _collapse4_np, bvh4_nodes
 
     v0, v1, v2 = _random_tri_soup(rng, 300, spread=6.0)
     bv0, bv1, bv2, valid = _pad_batches(v0, v1, v2, 2)
     bvh = build_scene_bvh_sah(bv0, bv1, bv2, valid)
     nodes4 = bvh4_nodes(bvh)
-    # native and numpy collapses agree on tree structure quality: both are
-    # valid 4-ary trees covering every leaf once
     np4 = _collapse4_np(np.asarray(bvh.boxes_t).T.copy(),
                         np.asarray(bvh.children_t).T.copy())
     for arr in (nodes4, np4):
@@ -211,44 +181,17 @@ def test_sah4_packet_kernel_interpret(rng):
                     stack.append(e & 0x3FFFFF)
         assert (seen == 1).all()
 
-    tables = pack_for_packets(bvh)._replace(nodes_f32=pack_nodes4(nodes4))
-
-    nrays = 128
-    org = jnp.asarray(rng.uniform(-12, 12, (nrays, 3)).astype(np.float32))
-    dirs = jnp.asarray(_normalize(
-        rng.normal(size=(nrays, 3)).astype(np.float32)))
-
-    ph = packet_intersect(tables, org, dirs, tlas_internal=0, arity=4,
-                          interpret=True, max_steps=16384)
-    # the dense (rolled-fetch) node layout — big-scene envelope mode —
-    # must agree with the row-padded default
-    tdense = pack_for_packets(bvh)._replace(
-        nodes_f32=pack_nodes4(nodes4, pad=False))
-    pd = packet_intersect(tdense, org, dirs, tlas_internal=0, arity=4,
-                          node_pad=False, interpret=True, max_steps=16384)
-    wh = intersect_scene(bvh, org, dirs, max_steps=16384)
-    pt, wt = np.asarray(ph.t), np.asarray(wh.t)
-    np.testing.assert_allclose(np.nan_to_num(np.asarray(pd.t), posinf=1e30),
-                               np.nan_to_num(pt, posinf=1e30), rtol=1e-5)
-    both = np.isfinite(pt) & np.isfinite(wt)
-    same_miss = ~np.isfinite(pt) & ~np.isfinite(wt)
-    assert (both | same_miss).all()
-    np.testing.assert_allclose(pt[both], wt[both], rtol=1e-4, atol=1e-4)
-    assert (np.asarray(ph.tri) == np.asarray(wh.tri))[both].mean() > 0.99
-
 
 @pytest.mark.parametrize("lw", [8, pytest.param(16, marks=pytest.mark.slow),
                                 pytest.param(32, marks=pytest.mark.slow)])
 @pytest.mark.slow
 def test_sah_wide_leaves_all_traversals(rng, lw):
-    """Row-aligned multi-tri leaves (leaf_max=8/16/32): wavefront, packet
-    and packet-arity4 traversals all match brute force over the original
-    soup.  Also: the collapse covers every original triangle and pads
-    short leaves with duplicates of a leaf member.  (Wider leaves are the
-    r4 per-visit-overhead amortization — RTRT_LEAF_WIDTH.)"""
-    from rtrt_tpu.bvh.packet import (pack_for_packets, pack_nodes4,
-                                     packet_intersect)
-    from rtrt_tpu.bvh.sah import bvh4_nodes
+    """Row-aligned multi-tri leaves (leaf_max=8/16/32): the wavefront
+    traversal and the GPU lane kernel (interpret mode) match brute force
+    over the original soup.  Also: the collapse covers every original
+    triangle and pads short leaves with duplicates of a leaf member.
+    (RTRT_LEAF_WIDTH selects the width.)"""
+    from rtrt_tpu.bvh.lane_traverse import intersect_lanes
     from rtrt_tpu.bvh.traverse import intersect_brute
 
     v0, v1, v2 = _random_tri_soup(rng, 500, spread=8.0)
@@ -270,19 +213,10 @@ def test_sah_wide_leaves_all_traversals(rng, lw):
     tb = np.asarray(hb.t)
 
     hw = intersect_scene(bvh, org, d, leaf_width=lw, max_steps=16384)
-    tables = pack_for_packets(bvh)
-    ph = packet_intersect(tables, org, d, tlas_internal=0, leaf_width=lw,
-                          interpret=True, max_steps=16384)
-    # padded-attr layout (roll-free resolve fetch) must agree too
-    tpad = pack_for_packets(bvh, attr_pad=True)
-    pp = packet_intersect(tpad, org, d, tlas_internal=0, leaf_width=lw,
-                          attr_pad=True, interpret=True, max_steps=16384)
-    t4 = tables._replace(nodes_f32=pack_nodes4(bvh4_nodes(bvh)))
-    p4 = packet_intersect(t4, org, d, tlas_internal=0, arity=4,
-                          leaf_width=lw, interpret=True, max_steps=16384)
+    hk = intersect_lanes(bvh, org, d, leaf_width=lw, max_steps=16384,
+                         interpret=True)
 
-    for t in (np.asarray(hw.t), np.asarray(ph.t), np.asarray(pp.t),
-              np.asarray(p4.t)):
+    for t in (np.asarray(hw.t), np.asarray(hk.t)):
         assert (np.isfinite(t) == np.isfinite(tb)).all()
         m = np.isfinite(t)
         np.testing.assert_allclose(t[m], tb[m], rtol=1e-4, atol=1e-4)

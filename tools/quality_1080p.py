@@ -1,7 +1,7 @@
 """Product-resolution quality evidence for PARITY.md (VERDICT r2 item 7).
 
 Runs the tests/test_quality.py methodology at the PRODUCT resolution on the
-real frame program (megakernel path, terrain scene): accumulate an N-spp
+real frame program (terrain scene): accumulate an N-spp
 converged reference with the denoiser off, stream M denoised 1-spp frames,
 and print the SSIM trajectory — the recorded evidence that the re-baselined
 quality bar (SSIM >= 0.98 vs a converged self-render; PARITY.md) holds at
@@ -31,19 +31,16 @@ def main():
                          "full-rate — measures the interlace quality cost")
     args = ap.parse_args()
 
-    import jax
-    cache_dir = os.environ.get("JAX_CACHE_DIR",
-                               os.path.expanduser("~/.cache/rtrt_jax"))
-    jax.config.update("jax_compilation_cache_dir", cache_dir)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 5.0)
     import jax.numpy as jnp
     import numpy as np
 
     from rtrt_tpu.engine.engine import Engine
+    from rtrt_tpu.utils.cache import enable_compile_cache
     from rtrt_tpu.utils.config import (DynamicResolution, FeatureFlags,
                                        GlobalSettings)
     from rtrt_tpu.utils.ssim import ssim
 
+    enable_compile_cache()
     settings = GlobalSettings(
         render_width=args.width, render_height=args.height, scene=args.scene,
         texture_size=256, dynamic_resolution=DynamicResolution(enabled=False))
